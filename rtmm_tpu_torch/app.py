@@ -1,0 +1,190 @@
+"""CLI application (PyTorch/CUDA port).
+
+Mirrors the reference entry point (src/application.cpp:333-364):
+`rtmm <mesh.gltf> [-T]` — positional micro-mesh asset plus the optional
+tessellated ground-truth mode. A headless host has no Win32 swapchain, so
+the "window" is an offline frame sequence: the trackball camera orbits and
+frames are written as PNG.
+
+    python -m rtmm_tpu_torch.app proc:sphere?level=3 --width 256 \
+        --height 256 --frames 2 --out frames            # on the card
+    python -m rtmm_tpu_torch.app ... --device cpu       # plain PyTorch
+
+Flags of features the port does not have yet exit with status 2 and say
+so.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .config import RenderConfig
+from .io import image as image_io
+from .models import procedural, scene as scene_mod
+from .render.renderer import FramePipeline, Renderer
+from .utils import camera
+
+
+def load_asset(path: str):
+    """Load a micro-mesh: .gltf/.glb via the asset loader, or a procedural
+    spec `proc:<name>?key=val,...` (e.g. proc:plane?level=3)."""
+    if path.startswith("proc:"):
+        spec = path[5:]
+        name, _, args = spec.partition("?")
+        kwargs = {}
+        for kv in filter(None, args.split(",")):
+            k, _, v = kv.partition("=")
+            kwargs[k] = float(v) if "." in v else int(v)
+        if name == "plane":
+            lvl = int(kwargs.pop("level", 3))
+            g = int(kwargs.pop("grid", 4))
+            return procedural.make_plane(grid=(g, g), level=lvl, **kwargs)
+        if name == "sphere":
+            lvl = int(kwargs.pop("level", 3))
+            sub = int(kwargs.pop("subdivisions", 1))
+            return procedural.make_icosphere(subdivisions=sub, level=lvl,
+                                             **kwargs)
+        raise SystemExit(f"unknown procedural asset '{name}'")
+    from .io import loader
+    return loader.load_micromesh(path)
+
+
+def _not_ported(args) -> str | None:
+    """The message for the first flag of a later slice, or None."""
+    later = [
+        (args.instances > 1, "--instances above 1 (instancing)"),
+        (args.tlas, "--tlas (two-level instancing)"),
+        (args.pathtrace > 0, "--pathtrace (path tracer)"),
+        (args.spp is not None, "--spp (path tracer)"),
+        (args.compressed, "--compressed (compressed scenes)"),
+        (args.cache, "--cache (scene cache)"),
+        (args.dump_bary, "--dump-bary (.bary inspector)"),
+        (args.stats, "--stats (traversal heatmap)"),
+        (args.pipeline in ("ray", "tile"),
+         f"--pipeline {args.pipeline} (the per-ray and XLA tile backends)"),
+    ]
+    for flagged, what in later:
+        if flagged:
+            return f"{what} is not yet ported to rtmm_tpu_torch"
+    return None
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="rtmm-torch",
+        description="micro-mesh ray tracer (PyTorch/CUDA port)")
+    parser.add_argument("asset", help=".gltf micro-mesh or proc:<spec>")
+    parser.add_argument("-T", dest="tessellated", action="store_true",
+                        help="pre-tessellate and trace plain triangles "
+                             "(ground-truth mode, README.md:7-12)")
+    parser.add_argument("--width", type=int, default=1024)
+    parser.add_argument("--height", type=int, default=1024)
+    parser.add_argument("--frames", type=int, default=1)
+    parser.add_argument("--orbit", type=float, default=2.0,
+                        help="degrees of yaw per frame")
+    parser.add_argument("--distance", type=float, default=4.0)
+    parser.add_argument("--pitch", type=float, default=-30.0)
+    parser.add_argument("--yaw", type=float, default=20.0)
+    parser.add_argument("--out", default="frames")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda: the trace kernel on the card; cpu: its "
+                             "plain PyTorch version")
+    parser.add_argument("--pipeline", default="auto",
+                        choices=["auto", "pallas", "ray", "tile"],
+                        help="trace backend: auto and pallas are the fused "
+                             "tile kernel; ray and tile are not ported yet")
+    parser.add_argument("--compare-t", action="store_true",
+                        help="render both micro-mesh and tessellated modes "
+                             "and report the image RMSE (the reference's "
+                             "implicit correctness oracle)")
+    # Flags of later slices (kept so that they fail clearly).
+    parser.add_argument("--stats", action="store_true")
+    parser.add_argument("--cache", action="store_true")
+    parser.add_argument("--compressed", action="store_true")
+    parser.add_argument("--instances", type=int, default=1)
+    parser.add_argument("--tlas", action="store_true")
+    parser.add_argument("--pathtrace", type=int, default=0,
+                        metavar="BOUNCES")
+    parser.add_argument("--spp", type=int, default=None)
+    parser.add_argument("--dump-bary", action="store_true")
+    args = parser.parse_args(argv)
+
+    msg = _not_ported(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 2
+    if not args.asset.startswith("proc:") and not os.path.exists(args.asset):
+        print("Micro-mesh file does not exist.", file=sys.stderr)
+        return 1
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("--device cuda: no CUDA device is available "
+              "(use --device cpu for the plain PyTorch path)",
+              file=sys.stderr)
+        return 1
+
+    cfg = RenderConfig(width=args.width, height=args.height)
+    t0 = time.perf_counter()
+    mesh = load_asset(args.asset)
+    print(f"loaded: {mesh.num_triangles} base triangles, "
+          f"max subdivision level {mesh.max_level}, "
+          f"uniform={mesh.has_uniform_subdivision_level()}")
+    ds = scene_mod.build_device_scene(mesh, tessellated=args.tessellated,
+                                      device=args.device)
+    print(f"scene build: {time.perf_counter() - t0:.2f}s "
+          f"(mode={'tessellated' if args.tessellated else 'micromesh'}, "
+          f"device={args.device})")
+
+    tb = camera.Trackball(distance=args.distance)
+    tb.set_camera([0.0, 0.0, 0.0],
+                  [np.radians(args.pitch), np.radians(args.yaw), 0.0],
+                  args.distance)
+
+    if args.compare_t:
+        ds_t = scene_mod.build_device_scene(mesh, tessellated=True,
+                                            device=args.device)
+        ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
+                                   cfg.fov_y_degrees, cfg.near, cfg.far)
+        img_mm = Renderer(ds, cfg).render(ivp).cpu().numpy()
+        img_ts = Renderer(ds_t, cfg).render(ivp).cpu().numpy()
+        rmse = float(np.sqrt(((img_mm - img_ts) ** 2).mean()))
+        npix = int((np.abs(img_mm - img_ts).max(-1) > 1e-3).sum())
+        print(f"micromesh vs tessellated: RMSE={rmse:.3e}, "
+              f"pixels>1e-3: {npix} of {cfg.width * cfg.height} "
+              f"({'PASS' if rmse <= 1e-3 else 'FAIL'} at 1e-3)")
+        return 0 if rmse <= 1e-3 else 2
+
+    pipe = FramePipeline(Renderer(ds, cfg))
+    os.makedirs(args.out, exist_ok=True)
+    written = 0
+
+    def write(img):
+        nonlocal written
+        path = os.path.join(args.out, f"frame_{written:04d}.png")
+        image_io.write_png(path, img)
+        print(f"frame {written} -> {path}")
+        written += 1
+
+    t0 = time.perf_counter()
+    for _ in range(args.frames):
+        ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
+                                   cfg.fov_y_degrees, cfg.near, cfg.far)
+        done = pipe.submit(ivp)
+        if done is not None:
+            write(done)
+        tb.rotation_euler[1] -= np.radians(args.orbit)
+    for done in pipe.drain():
+        write(done)
+    dt = time.perf_counter() - t0
+    print(f"{args.frames} frame(s) in {dt * 1e3:.1f} ms on {args.device} "
+          f"({args.frames * cfg.width * cfg.height / dt / 1e6:.2f} Mrays/s, "
+          "PNG writes included)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Render configuration.
+
+The reference hard-codes all render/shading parameters as shader constants
+(shaders/closesthit.hlsl:1-9, shaders/raygen.hlsl:35-36,
+src/application.cpp:41-42). Here they are surfaced as a dataclass with the
+reference values as defaults, so benchmarks and tests can tune them without
+recompiling shaders.
+
+Port note: this keeps the fields that define the reference semantics of
+the primary frame. Dropped from the JAX package's RenderConfig:
+  * TPU-only knobs: `tiles_per_block`, `mt_precision` (the port computes
+    in float32 throughout), `compute_dtype`;
+  * fields of backends not ported yet: `pipeline` (the CLI's --pipeline
+    flag selects instead), `max_candidates`, `ray_chunk` (per-ray
+    backend), `clusters_per_window`, `tile_chunk` (XLA tile backend),
+    `instance_tile_cap` (instancing), `debug_guards` (sanitizer).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    # Window / dispatch size (src/application.cpp:41 — 1024x1024 window).
+    width: int = 1024
+    height: int = 1024
+
+    # Camera (src/application.cpp:42 — perspective(radians(80), aspect, 0.1, 1000)).
+    fov_y_degrees: float = 80.0
+    near: float = 0.1
+    far: float = 1000.0
+
+    # Ray extents (shaders/raygen.hlsl:35-36).
+    t_min: float = 0.001
+    t_max: float = 10000.0
+
+    # Miss/background color (shaders/miss.hlsl:7).
+    background: tuple[float, float, float] = (0.29, 0.29, 0.29)
+
+    # PBR material + lights (shaders/closesthit.hlsl:1-9).
+    shading_weight: float = 1.0
+    metallic: float = 0.25
+    roughness: float = 0.45
+    ambient_occlusion: float = 0.1
+    mesh_color: tuple[float, float, float] = (0.51, 0.62, 0.82)
+    light_color: tuple[float, float, float] = (1.0, 1.0, 1.0)
+    light_intensity: float = 22.0
+
+    # Per-tile cluster-list capacity of one trace launch. A scene whose
+    # cluster count exceeds it needs the windowed kernel mode (not ported
+    # yet); 256 keeps a 200-cluster (51k-tri) scene on the fused path.
+    kernel_clusters_per_window: int = 256
+    # Sub-cones per 32x32 tile for the kernel's per-unit cull. 4 (vertical
+    # 8-px strips) for coherent primary frames; 8 for silhouette-heavy
+    # frames.
+    sub_frusta: int = 4
+    # Rows in the sub-cone grid (1 = vertical strips). Must divide
+    # sub_frusta and the 32-px tile height.
+    sub_rows: int = 1
+    # Generate primary rays inside the kernel from the inv-view-proj
+    # scalars of the frustum pack (the only mode the port's kernel has).
+    kernel_raygen: bool = True
+
+
+DEFAULT_CONFIG = RenderConfig()

@@ -1,0 +1,109 @@
+"""Frame renderer: prologue -> fused trace + shade -> framebuffer.
+
+Equivalent of the reference per-frame hot loop (Application::update,
+src/application.cpp:200-242): there, one DispatchRays call renders the frame
+into a UAV texture which is copied to the swapchain. Here one kernel launch
+(ops/tile_trace.py) renders the frame after a short tensor prologue; the
+only per-frame host->device input is the 4x4 inverse view-projection
+matrix (application.cpp:204-205).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..models.scene import DeviceScene
+from ..ops import tile_trace
+
+
+def render_image(scene: DeviceScene, inv_view_proj,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Render one frame on the scene's device. Returns (H, W, 3) float32
+    in [0, 1]: the fused tile-trace kernel on the card, its plain version
+    on the CPU."""
+    return tile_trace.render_frame(scene, inv_view_proj, cfg)
+
+
+def _quantize(img: torch.Tensor) -> torch.Tensor:
+    """On-device u8 quantization, as the reference's R8G8B8A8_UNORM output
+    texture (src/application.cpp:82-89)."""
+    return (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+class Renderer:
+    """The render pipeline for one scene.
+
+    Analog of Application's RayTraceShader setup (src/application.cpp:113-197);
+    render() is the per-frame path. The kernel library is built on the
+    first frame rendered on the card.
+    """
+
+    def __init__(self, scene: DeviceScene, cfg: RenderConfig | None = None):
+        self.scene = scene
+        self.cfg = cfg or RenderConfig()
+
+    def resize(self, width: int, height: int) -> None:
+        """New framebuffer size — the analog of the reference's WM_SIZE
+        path (framework/src/window.cpp:173-182)."""
+        self.cfg = dataclasses.replace(self.cfg, width=width, height=height)
+
+    def render(self, inv_view_proj) -> torch.Tensor:
+        """Returns the (H, W, 3) float32 framebuffer on the scene's device."""
+        return render_image(self.scene, inv_view_proj, self.cfg)
+
+    def render_u8_device(self, inv_view_proj) -> torch.Tensor:
+        """(H, W, 3) uint8 frame, quantized on the scene's device."""
+        return _quantize(self.render(inv_view_proj))
+
+    def render_u8(self, inv_view_proj) -> np.ndarray:
+        """Quantized frame as a host uint8 array (quantization runs on the
+        device; only the u8 frame is read back)."""
+        return self.render_u8_device(inv_view_proj).cpu().numpy()
+
+
+class FramePipeline:
+    """Two frames in flight — the GPUState swapchain-pacing analog
+    (src/dx_util/GPUState.cpp:115-148 keeps 2 frames in flight and blocks
+    on the fence of frame n-2).
+
+    Kernel launches are asynchronous: submit() queues frame n on the
+    current CUDA stream, starts its copy into pinned host memory and
+    returns, so the device renders frame n while the host reads back and
+    writes out frame n-1. On the CPU every frame completes in submit().
+    """
+
+    def __init__(self, renderer: Renderer, depth: int = 2):
+        self.renderer = renderer
+        self.depth = depth
+        self._queue: list = []
+
+    def submit(self, inv_view_proj):
+        """Enqueue a frame; returns the oldest finished frame (as uint8
+        ndarray) once the pipeline is full, else None."""
+        frame = self.renderer.render_u8_device(inv_view_proj)
+        if frame.device.type == "cuda":
+            host = torch.empty(frame.shape, dtype=frame.dtype,
+                               pin_memory=True)
+            host.copy_(frame, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(frame.device))
+            self._queue.append((host, done))
+        else:
+            self._queue.append((frame, None))
+        if len(self._queue) >= self.depth:
+            return self._pop()
+        return None
+
+    def _pop(self) -> np.ndarray:
+        host, done = self._queue.pop(0)
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def drain(self):
+        """Yield all remaining frames."""
+        while self._queue:
+            yield self._pop()

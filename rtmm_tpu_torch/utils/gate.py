@@ -1,0 +1,27 @@
+"""Image agreement gate between two renders of one frame.
+
+The two-tier pixel gate of the JAX package's benchmark (bench.py
+diff_metrics and its budgets): a noise tier counts pixels whose largest
+channel differs by more than 4/255 (one visible u8 step), a big tier
+those that differ by more than 0.25 (a different surface or a miss).
+Epsilon flips at leaf silhouettes land in the noise tier in small
+numbers; a miscompiled or wrong walk shows hundreds of big diffs.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def image_gate(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Compare two (H, W, 3) renders. Returns the counts, the budgets
+    max(64, W*H // 2000) and max(16, W*H // 50000), the max pixel
+    difference, and "ok" when both counts are within budget."""
+    h, w = a.shape[0], a.shape[1]
+    d = (a.float() - b.float()).abs().amax(dim=-1)
+    npix = int((d > 4.0 / 255.0).sum())
+    nbig = int((d > 0.25).sum())
+    budget = max(64, (w * h) // 2000)
+    big_budget = max(16, (w * h) // 50000)
+    return {"npix": npix, "nbig": nbig, "budget": budget,
+            "big_budget": big_budget, "maxdiff": float(d.max()),
+            "ok": npix <= budget and nbig <= big_budget}

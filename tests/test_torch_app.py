@@ -1,0 +1,57 @@
+"""The port's CLI on the CPU: a render writes a PNG, errors exit non-zero."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from rtmm_tpu_torch import app
+from rtmm_tpu_torch.io import image as image_io
+
+# One intra-op thread: the suite runs several pytest workers on one shared
+# CPU, and with JAX in the same process the first multi-threaded PyTorch
+# op after a JAX computation was seen to compute part of its range wrong
+# (about one process in twenty; never single-threaded).
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_cli_renders_png(tmp_path):
+    out = tmp_path / "frames"
+    proc = subprocess.run(
+        [sys.executable, "-m", "rtmm_tpu_torch.app", "proc:sphere?level=2",
+         "--width", "64", "--height", "64", "--frames", "1",
+         "--device", "cpu", "--out", str(out)],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    img = image_io.read_png(str(out / "frame_0000.png"))
+    assert img.shape == (64, 64, 3) and img.dtype == np.uint8
+    assert len(np.unique(img.reshape(-1, 3), axis=0)) > 1   # not just bg
+
+
+def test_missing_asset_exits_1(tmp_path, capsys):
+    rc = app.main([str(tmp_path / "nope.gltf"), "--device", "cpu"])
+    assert rc == 1
+    assert "Micro-mesh file does not exist." in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--instances", "3"], ["--tlas"], ["--pathtrace", "2"], ["--spp", "4"],
+    ["--compressed"], ["--cache"], ["--dump-bary"], ["--stats"],
+    ["--pipeline", "ray"], ["--pipeline", "tile"],
+])
+def test_later_slice_flags_exit_nonzero(flags, capsys):
+    rc = app.main(["proc:sphere?level=2", "--device", "cpu", *flags])
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_compare_t_oracle(capsys):
+    rc = app.main(["proc:sphere?level=2,subdivisions=0", "--width", "64",
+                   "--height", "32", "--device", "cpu", "--compare-t"])
+    assert rc == 0
+    assert "PASS" in capsys.readouterr().out

@@ -1,0 +1,54 @@
+"""The port stands alone: no module of rtmm_tpu_torch, nor chip_smoke.py,
+imports JAX or the JAX package, and importing the port's entry points
+leaves JAX unloaded."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "rtmm_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "rtmm_tpu")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    """Top-level names of every absolute import in the file."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_scan_covers_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "rtmm_tpu_torch/ops/tile_trace.py" in names
+    assert "chip_smoke.py" in names
+    assert len(names) >= 25
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_or_reference_import(path):
+    # Exact top-level names: "rtmm_tpu_torch" is allowed, "rtmm_tpu" not.
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_entry_points_leave_jax_unloaded():
+    code = ("import sys, rtmm_tpu_torch.app, rtmm_tpu_torch.render.renderer; "
+            "print(sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith('jax.') or m == 'rtmm_tpu' "
+            "or m.startswith('rtmm_tpu.')))")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
