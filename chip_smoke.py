@@ -17,13 +17,24 @@ Phases (any failure raises and exits non-zero):
      inputs on the card (two-tier image gate, per-tile visit and eligible
      counts equal), total visits within 5% of the fixed-camera pin;
   5. timing with CUDA events: the kernel on one frame's inputs, the
-     32-frame orbit, the plain version, and the kernel's bound.
+     32-frame orbit, the plain version, and the kernel's bound;
+  6. bench config 9 (51,200-triangle level-2 plane, compressed: the
+     kernel derives each visited unit's tables, K1c) at 1080p: main path
+     counted (one frame + an 8-frame orbit), visits within 5% of the pin,
+     kernel vs plain on the full frame, the frame against config 6 (the
+     same mesh with precomputed tables, K1a), timing and bound;
+  7. windowed walks (K1b): (a) config 3 with 4 clusters per window,
+     against phase 3's fused frame, and (b) config 7's construction
+     (level-3 plane, compressed) cut from a 707x707 to a 160x160 grid
+     (800 clusters) and from 256 to 16 clusters per window, both counted,
+     kernel vs plain on the first window's launch, timing and bound.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -56,6 +67,26 @@ PEAK_BYTES = 3.35e12
 # moment (9) and the fold (tb select, subtract, compare, take = 4).
 OPS_PER_RAY_LEAF = 44 + 1 + 4 + 4 + 1 + 1
 OPS_PER_RAY_VISIT = 64 * OPS_PER_RAY_LEAF + 9 + 4
+TILE_RAYS = 32 * 32
+# float32 operations per leaf of a compressed unit visit, counted from
+# stage_grid_units: edges 6, recentred v0 3, three cross products 27,
+# e2.w2 5, t_num 9, negated q entries 12, the w column 12, the normal's
+# norm 7 and its three divisions 3.
+DERIVE_OPS_PER_LEAF = 6 + 3 + 27 + 5 + 9 + 12 + 12 + 7 + 3
+# Bench config 9 (bench.py:113-122) and its visit pin (bench.py:268), and
+# the cuts of config 7 (bench.py:106-112: a 707x707 grid, 10^6 triangles,
+# 15,625 clusters) that the windowed compressed phase renders: a 160x160
+# grid (800 clusters), and the window capacity scaled with the cluster
+# count, 256 -> 16, so that tiles still need several windows (at the
+# verify camera a tile of the cut scene sees at most ~50 clusters).
+EXPECTED_VISITS_9 = 21967
+GRID_7 = 160
+CLUSTERS_PER_WINDOW_7 = 16
+CLUSTERS_PER_WINDOW_3 = 4
+ORBIT_9 = 8
+# Kernel-vs-plain rows of the windowed compressed launch: at least this
+# many non-empty tiles, the TOP_TILES with the most visits among them.
+CHECK_TILES, TOP_TILES = 64, 16
 
 
 def _log(msg: str) -> None:
@@ -93,6 +124,379 @@ def _events_ms(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(card: str, name: str, visits: int, nbytes: int,
+           derive: bool) -> tuple[float, str]:
+    """Least time for one launch: its fp32 operations (this run's visits;
+    with the compressed derive per unit visit) over the fp32 peak, or its
+    bytes (each input read once, each output written once) over the HBM
+    rate, whichever is larger."""
+    ops = visits * TILE_RAYS * OPS_PER_RAY_VISIT
+    if derive:
+        ops += visits * 64 * DERIVE_OPS_PER_LEAF
+    ops_ms = ops / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    _log(f"[bound {name}] {card}: {ops:.4e} fp32 ops ({visits} visits x "
+         f"1024 rays x {OPS_PER_RAY_VISIT}"
+         + (f" + {visits} x 64 leaves x {DERIVE_OPS_PER_LEAF} derive"
+            if derive else "")
+         + f") / 67 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB / "
+         f"3.35 TB/s = {bytes_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.4f} "
+         f"ms ({by})")
+    return max(ops_ms, bytes_ms), by
+
+
+def _entry(name: str, mode: str, launches: int, err: float, ms: float,
+           plain_ms: float, bound: tuple[float, str]) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "rtmm_tpu_torch/csrc/tile_trace.cu",
+            "replaces": f"rtmm_tpu/ops/pallas_tiled.py:1336 ({mode})",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def _compare_counts(what: str, k_vis, p_vis, k_elig, p_elig, rows=None):
+    if rows is not None:
+        k_vis, p_vis = k_vis[rows], p_vis[rows]
+        k_elig, p_elig = k_elig[rows], p_elig[rows]
+    if not (torch.equal(k_vis, p_vis) and torch.equal(k_elig, p_elig)):
+        bad = (k_vis != p_vis) | (k_elig != p_elig)
+        first = int(bad.nonzero()[0, 0])
+        raise RuntimeError(f"{what}: per-tile counts differ on "
+                           f"{int(bad.sum())} tiles, first at row {first}")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _window_carry(n_rows: int, dev):
+    from rtmm_tpu_torch.ops import tile_trace
+    return (torch.full((n_rows, 1024), tile_trace.BIG, device=dev),
+            torch.zeros((n_rows, 3, 1024), device=dev),
+            torch.zeros(n_rows, dtype=torch.int32, device=dev),
+            torch.zeros(n_rows, dtype=torch.int32, device=dev))
+
+
+def _window_launches(scene, ivp, cfg, kc):
+    """Every window launch of one windowed frame, recorded from the
+    frame's own window loop: a list of the (args, options) of
+    trace_windowed / trace_windowed_plain, the first window first, and
+    the visits each window added."""
+    from rtmm_tpu_torch.ops import tiled, tile_trace
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, ivp, cfg)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    launches, added = [], []
+
+    def trace_window(ccand, ccount, centry, best_t, rest):
+        args = (ccand, ccount, centry, frus, raymat, (best_t, *rest), meta,
+                tables, cfg)
+        launches.append((args, opts))
+        t, n, vis, elig = tile_trace.trace_windowed(*args, **opts)
+        added.append(int(vis.sum()) - int(rest[1].sum()))
+        return t, (n, vis, elig)
+
+    carry = _window_carry(frus.shape[0], frus.device)
+    tiled.trace_windowed_clusters(scene, fi, trace_window, carry[0],
+                                  carry[1:], kc)
+    return launches, added
+
+
+def _time_windows(launches) -> float:
+    """CUDA-event ms of all of a frame's window launches, replayed."""
+    from rtmm_tpu_torch.ops import tile_trace
+
+    def replay():
+        for args, opts in launches:
+            tile_trace.trace_windowed(*args, **opts)
+
+    replay()
+    return _events_ms(replay, reps=3)
+
+
+def phase_config9(card, ivp, cfg, counted, geo):
+    """Config 9 at full size: compressed fused (K1c)."""
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    t0 = time.perf_counter()
+    mesh = procedural.make_plane(grid=(160, 160), level=2, amplitude=0.05)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = scene_mod.build_device_scene(mesh, compressed=True,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    scene6 = scene_mod.build_device_scene(mesh, device="cuda")
+    _log(f"[config 9] {mesh.num_triangles} base triangles, level "
+         f"{mesh.max_level}, compressed: U = {scene.num_units} units "
+         f"({int(scene.unit_valid.sum())} valid), C = {scene.num_clusters} "
+         f"clusters, indexed {scene.indexed}, shared topology "
+         f"{scene.unit_gmat is not None}; {scene.device_bytes() / 2**20:.1f} "
+         f"MiB on the card (config 6, precomputed: "
+         f"{scene6.device_bytes() / 2**20:.1f} MiB); mesh {t_mesh:.1f} s, "
+         f"compressed build {t_build:.1f} s")
+    ivps = np.stack([_camera(25.0 + 360.0 / ORBIT_9 * k, cfg)
+                     for k in range(ORBIT_9)])
+
+    tile_trace.reset_launches()
+    img, stats = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
+    orbit = tile_trace.render_frames(scene, ivps, cfg)
+    torch.cuda.synchronize()
+    launches = counted("tile_trace_fused_compressed")
+    _log(f"[config 9 main path] launches of tile_trace_fused_compressed: "
+         f"{launches} (1 frame + 1 orbit of {ORBIT_9})")
+    if launches != 2:
+        raise RuntimeError(f"expected 2 launches, counted {launches}")
+    if not (bool(torch.isfinite(orbit).all())
+            and tuple(orbit.shape) == (ORBIT_9, HEIGHT, WIDTH, 3)
+            and torch.equal(orbit[0], img)):
+        raise RuntimeError("config 9: orbit malformed or frame 0 differs")
+    nvis = int(stats["kernel_unit_visits"].sum())
+    _log(f"[config 9] visits {nvis}, pin {EXPECTED_VISITS_9} (bench.py:268)")
+    if abs(nvis - EXPECTED_VISITS_9) > VISITS_RTOL * EXPECTED_VISITS_9:
+        raise RuntimeError(f"config 9 visits {nvis} outside 5% of the pin")
+    img6, st6 = tile_trace.render_frame(scene6, ivp, cfg, with_stats=True)
+    gate6 = image_gate(img, img6)
+    _log(f"[config 9 vs config 6] {gate6}; visits config 6 "
+         f"{int(st6['kernel_unit_visits'].sum())}")
+    if not gate6["ok"]:
+        raise RuntimeError(f"config 9 frame fails the gate: {gate6}")
+
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    rows = tile_trace.frame_inputs(scene, ivp, cfg, kc)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    args = (*rows, meta, tables, cfg)
+    k_img, k_vis, k_elig = tile_trace.trace_fused(*args, **opts, **geo)
+    (p_img, p_vis, p_elig), plain_ms = _timed(
+        lambda: tile_trace.trace_fused_plain(*args, **opts, **geo))
+    k_img = k_img[0, :HEIGHT, :WIDTH]
+    p_img = p_img[0, :HEIGHT, :WIDTH]
+    gate = image_gate(k_img, p_img)
+    err = float((k_img - p_img).abs().max())
+    _log(f"[config 9 check] kernel vs plain, full frame: {gate}; max |diff| "
+         f"{err:.3e}; visits kernel {int(k_vis.sum())} plain "
+         f"{int(p_vis.sum())}; eligible kernel {int(k_elig.sum())} plain "
+         f"{int(p_elig.sum())}")
+    _compare_counts("config 9", k_vis, p_vis, k_elig, p_elig)
+    if not gate["ok"] or err > MAX_ABS_ERR or not torch.equal(k_img, img):
+        raise RuntimeError("config 9: kernel disagrees with its plain "
+                           "version or with the main-path frame")
+
+    def kernel_once():
+        tile_trace.trace_fused(*args, **opts, **geo)
+
+    kernel_once()
+    kernel_ms = _events_ms(kernel_once, reps=10)
+
+    def orbit_once():
+        tile_trace.render_frames(scene, ivps, cfg)
+
+    orbit_once()
+    orbit_ms = _events_ms(orbit_once, reps=1, rounds=3) / ORBIT_9
+    _log(f"[config 9 time] {card}: kernel {kernel_ms:.4f} ms per 1080p frame "
+         f"launch ({WIDTH * HEIGHT / (kernel_ms * 1e-3) / 1e6:.1f} Mrays/s); "
+         f"orbit of {ORBIT_9} frames in one launch {orbit_ms:.4f} ms/frame "
+         f"({WIDTH * HEIGHT / (orbit_ms * 1e-3) / 1e6:.1f} Mrays/s, prologue "
+         f"included); plain version {plain_ms:.1f} ms per frame")
+    n_rows = rows[3].shape[0]
+    bound = _bound(card, "config 9", int(k_vis.sum()),
+                   _nbytes(*rows, meta, tables, opts["corners"])
+                   + geo["pw"] * geo["ph"] * 12 + 2 * n_rows * 4, True)
+    return _entry("tile_trace_fused_compressed",
+                  "fused, compressed grid_su", launches, err, kernel_ms,
+                  plain_ms, bound)
+
+
+def phase_windowed3(card, scene, ivp, cfg, counted, img_fused,
+                    fused_visits):
+    """Config 3 in windows of CLUSTERS_PER_WINDOW_3 clusters (K1b)."""
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    cfg_w = dataclasses.replace(
+        cfg, kernel_clusters_per_window=CLUSTERS_PER_WINDOW_3)
+    tile_trace.reset_launches()
+    img, stats = tile_trace.render_frame(scene, ivp, cfg_w, with_stats=True)
+    torch.cuda.synchronize()
+    launches = counted("tile_trace_windowed")
+    windows = stats["windows"]
+    _log(f"[windowed 3 main path] launches of tile_trace_windowed: "
+         f"{launches} ({windows} windows of {CLUSTERS_PER_WINDOW_3} of "
+         f"{scene.num_clusters} clusters)")
+    if launches != windows or windows < 2:
+        raise RuntimeError(f"windowed config 3: {launches} launches, "
+                           f"{windows} windows")
+    gate = image_gate(img, img_fused)
+    over = int(((img - img_fused).abs().amax(-1) > MAX_ABS_ERR).sum())
+    vis = stats["kernel_unit_visits"]
+    _log(f"[windowed 3 vs fused] {gate}; {over} pixels over "
+         f"{MAX_ABS_ERR:g}; visits windowed "
+         f"{int(vis.sum())} fused {int(fused_visits.sum())}; eligible "
+         f"windowed {int(stats['kernel_unit_eligible'].sum())}")
+    if not torch.equal(vis, fused_visits):
+        diff = (vis != fused_visits).nonzero()
+        ty, tx = (int(v) for v in diff[0])
+        _log(f"[windowed 3 vs fused] per-tile visits differ on {len(diff)} "
+             f"tiles; first tile (row {ty}, col {tx}): windowed "
+             f"{int(vis[ty, tx])}, fused {int(fused_visits[ty, tx])}")
+    else:
+        _log("[windowed 3 vs fused] per-tile visits equal on every tile")
+    if not gate["ok"] or gate["maxdiff"] > MAX_ABS_ERR:
+        raise RuntimeError(f"windowed config 3 frame fails: {gate}")
+
+    launches_w, added = _window_launches(scene, ivp, cfg_w,
+                                         CLUSTERS_PER_WINDOW_3)
+    _log(f"[windowed 3] visits per window {added}")
+    args, opts = launches_w[0]
+    k = tile_trace.trace_windowed(*args, **opts)
+    p, plain_ms = _timed(lambda: tile_trace.trace_windowed_plain(*args,
+                                                                 **opts))
+    _compare_counts("windowed config 3", k[2], p[2], k[3], p[3])
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[1] - p[1]).abs().max()))
+    _log(f"[windowed 3 check] first window, all {k[0].shape[0]} tiles: "
+         f"visits {int(k[2].sum())} equal per tile; max |diff| t and "
+         f"normals {err:.3e}")
+    if err > MAX_ABS_ERR:
+        raise RuntimeError("windowed config 3: kernel disagrees")
+
+    def window_once():
+        tile_trace.trace_windowed(*args, **opts)
+
+    window_once()
+    kernel_ms = _events_ms(window_once, reps=10)
+
+    def frame_once():
+        tile_trace.render_frame(scene, ivp, cfg_w)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=1, rounds=3)
+    windows_ms = _time_windows(launches_w)
+    _log(f"[windowed 3 time] {card}: first-window launch {kernel_ms:.4f} ms; "
+         f"whole windowed frame ({windows} launches, host loop and shading "
+         f"included) {frame_ms:.4f} ms, of which its {len(launches_w)} "
+         f"window launches, replayed, {windows_ms:.4f} ms; plain first "
+         f"window {plain_ms:.1f} ms")
+    ccand, ccount, centry, frus, raymat, carry, meta, tables, _ = args
+    bound = _bound(card, "windowed 3", int(k[2].sum()),
+                   _nbytes(ccand, ccount, centry, frus, raymat, meta, tables)
+                   + 2 * _nbytes(*carry), False)
+    return _entry("tile_trace_windowed", "windowed, fused=False", launches,
+                  err, kernel_ms, plain_ms, bound)
+
+
+def phase_windowed7(card, ivp, cfg, counted):
+    """Config 7's construction at a 160x160 grid: compressed windowed."""
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+    from rtmm_tpu_torch.ops import tile_trace
+
+    cfg = dataclasses.replace(
+        cfg, kernel_clusters_per_window=CLUSTERS_PER_WINDOW_7)
+
+    t0 = time.perf_counter()
+    mesh = procedural.make_plane(grid=(GRID_7, GRID_7), level=3,
+                                 amplitude=0.05)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = scene_mod.build_device_scene(mesh, compressed=True,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    _log(f"[config 7 cut] grid {GRID_7}x{GRID_7} (config 7: 707x707), "
+         f"{CLUSTERS_PER_WINDOW_7} clusters per window (256): "
+         f"{mesh.num_triangles} base triangles, level {mesh.max_level}, "
+         f"{mesh.num_triangles * 64} micro-triangles; U = {scene.num_units} "
+         f"units, C = {scene.num_clusters} clusters; "
+         f"{scene.device_bytes() / 2**20:.1f} MiB on the card; mesh "
+         f"{t_mesh:.1f} s, build {t_build:.1f} s")
+
+    tile_trace.reset_launches()
+    img, stats = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
+    torch.cuda.synchronize()
+    launches = counted("tile_trace_windowed_compressed")
+    windows = stats["windows"]
+    vis = stats["kernel_unit_visits"]
+    hit = float((img != torch.tensor(cfg.background, device=img.device))
+                .any(-1).float().mean())
+    _log(f"[config 7 cut main path] launches of "
+         f"tile_trace_windowed_compressed: {launches} ({windows} windows); "
+         f"visits {int(vis.sum())}; {hit:.3f} of the pixels hit")
+    if launches != windows or windows < 2:
+        raise RuntimeError(f"config 7 cut: {launches} launches, {windows} "
+                           "windows")
+    if not bool(torch.isfinite(img).all()) or hit < 0.05:
+        raise RuntimeError("config 7 cut: frame non-finite or empty")
+
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    launches_w, added = _window_launches(scene, ivp, cfg, kc)
+    _log(f"[config 7 cut] one launch per window; visits per window {added}")
+    args, opts = launches_w[0]
+    k = tile_trace.trace_windowed(*args, **opts)
+    torch.cuda.synchronize()
+    # Check rows: the TOP_TILES non-empty tiles with the most visits, then
+    # evenly spaced others up to CHECK_TILES.
+    nonempty = (args[1] > 0).nonzero()[:, 0]
+    order = torch.argsort(k[2][nonempty], descending=True, stable=True)
+    top = nonempty[order[:TOP_TILES]]
+    rest = nonempty[order[TOP_TILES:]]
+    step = max(1, len(rest) // max(1, CHECK_TILES - TOP_TILES))
+    rows = sorted(set(top.tolist()) | set(rest[::step][:CHECK_TILES
+                                                        - TOP_TILES].tolist()))
+    p, plain_ms = _timed(lambda: tile_trace.trace_windowed_plain(
+        *args, **opts, rows=rows))
+    _compare_counts("config 7 cut", k[2], p[2], k[3], p[3], rows)
+    err = max(float((k[0][rows] - p[0][rows]).abs().max()),
+              float((k[1][rows] - p[1][rows]).abs().max()))
+    _log(f"[config 7 cut check] first window, {len(rows)} of "
+         f"{len(nonempty)} non-empty tiles (the {TOP_TILES} with the most "
+         f"visits among them): visits {int(k[2][rows].sum())} of "
+         f"{int(k[2].sum())} equal per tile; max |diff| t and normals "
+         f"{err:.3e}")
+    if len(rows) < min(CHECK_TILES, len(nonempty)) or err > MAX_ABS_ERR:
+        raise RuntimeError("config 7 cut: kernel disagrees or too few rows")
+
+    def window_once():
+        tile_trace.trace_windowed(*args, **opts)
+
+    window_once()
+    kernel_ms = _events_ms(window_once, reps=5)
+
+    def frame_once():
+        tile_trace.render_frame(scene, ivp, cfg)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=1, rounds=3)
+    windows_ms = _time_windows(launches_w)
+    _log(f"[config 7 cut time] {card}: first-window launch {kernel_ms:.4f} "
+         f"ms; whole windowed frame ({windows} launches, host loop and "
+         f"shading included) {frame_ms:.4f} ms "
+         f"({WIDTH * HEIGHT / (frame_ms * 1e-3) / 1e6:.1f} Mrays/s), of "
+         f"which its {len(launches_w)} window launches, replayed, "
+         f"{windows_ms:.4f} ms; plain first window on the {len(rows)} "
+         f"checked tiles {plain_ms:.1f} ms")
+    ccand, ccount, centry, frus, raymat, carry, meta, tables, _ = args
+    bound = _bound(card, "config 7 cut", int(k[2].sum()),
+                   _nbytes(ccand, ccount, centry, frus, raymat, meta, tables,
+                           opts["corners"]) + 2 * _nbytes(*carry), True)
+    entry = _entry("tile_trace_windowed_compressed",
+                   "windowed, compressed grid_su", launches, err, kernel_ms,
+                   plain_ms, bound)
+    entry["plain_tiles"] = len(rows)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -104,6 +508,15 @@ def main() -> int:
     from rtmm_tpu_torch.ops import _build, culling, tiled, tile_trace
     from rtmm_tpu_torch.render.renderer import FramePipeline, Renderer
     from rtmm_tpu_torch.utils.gate import image_gate
+
+    def counted(kernel: str) -> int:
+        """Launches of `kernel` since the last reset; every other kernel
+        must not have launched."""
+        others = {k: n for k, n in tile_trace.LAUNCHES.items()
+                  if k != kernel and n}
+        if others:
+            raise RuntimeError(f"unexpected launches {others}")
+        return tile_trace.LAUNCHES[kernel]
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -141,7 +554,7 @@ def main() -> int:
                      for k in range(ORBIT_FRAMES)])
 
     # -- 3. main path (counted launches) ---------------------------------
-    tile_trace.LAUNCHES = 0
+    tile_trace.reset_launches()
     img_main, stats = tile_trace.render_frame(scene, ivp, cfg,
                                               with_stats=True)
     orbit = tile_trace.render_frames(scene, ivps, cfg)
@@ -155,7 +568,7 @@ def main() -> int:
             piped.append(done)
     piped += list(pipe.drain())
     torch.cuda.synchronize()
-    launches = tile_trace.LAUNCHES
+    launches = counted("tile_trace_fused")
     _log(f"[main path] launches of tile_trace: {launches} (1 frame + "
          f"1 orbit of {ORBIT_FRAMES} + 2 render_u8 + 3 pipelined)")
     if launches != 7:
@@ -177,7 +590,7 @@ def main() -> int:
          "pixels differ from the background")
 
     # -- 4. correctness: kernel vs plain on the same inputs ----------------
-    kc = tile_trace._window(scene, cfg)
+    kc = tile_trace.clusters_per_window(scene, cfg)
     rows = tile_trace.frame_inputs(scene, ivp, cfg, kc)
     pw, ph = tiled.padded_size(WIDTH, HEIGHT)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
@@ -260,19 +673,17 @@ def main() -> int:
          f"{bound_ms:.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
          f"kernel at {bound_ms / kernel_ms:.3f} of it")
 
-    kernels = [{
-        "name": "tile_trace_fused",
-        "route": "cuda",
-        "source": "rtmm_tpu_torch/csrc/tile_trace.cu",
-        "replaces": "rtmm_tpu/ops/pallas_tiled.py:1336",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]
+    kernels = [_entry("tile_trace_fused", "fused, in-kernel raygen",
+                      launches, max_abs_err, kernel_ms, plain_ms,
+                      (bound_ms, "operations" if ops_ms >= bytes_ms
+                       else "bytes"))]
+
+    # -- 6. config 9: compressed, fused (K1c) -------------------------------
+    kernels.append(phase_config9(card, ivp, cfg, counted, geo))
+    # -- 7. windowed walks (K1b) ---------------------------------------------
+    kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
+                                   stats["kernel_unit_visits"]))
+    kernels.append(phase_windowed7(card, ivp, cfg, counted))
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

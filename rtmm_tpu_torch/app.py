@@ -61,7 +61,6 @@ def _not_ported(args) -> str | None:
         (args.tlas, "--tlas (two-level instancing)"),
         (args.pathtrace > 0, "--pathtrace (path tracer)"),
         (args.spp is not None, "--spp (path tracer)"),
-        (args.compressed, "--compressed (compressed scenes)"),
         (args.cache, "--cache (scene cache)"),
         (args.dump_bary, "--dump-bary (.bary inspector)"),
         (args.stats, "--stats (traversal heatmap)"),
@@ -98,6 +97,11 @@ def main(argv=None) -> int:
                         choices=["auto", "pallas", "ray", "tile"],
                         help="trace backend: auto and pallas are the fused "
                              "tile kernel; ray and tile are not ported yet")
+    parser.add_argument("--compressed", action="store_true",
+                        help="store only per-unit grid-vertex records and "
+                             "derive each visited unit's tables in the "
+                             "trace kernel (the reference's direct-tracing "
+                             "memory model)")
     parser.add_argument("--compare-t", action="store_true",
                         help="render both micro-mesh and tessellated modes "
                              "and report the image RMSE (the reference's "
@@ -105,7 +109,6 @@ def main(argv=None) -> int:
     # Flags of later slices (kept so that they fail clearly).
     parser.add_argument("--stats", action="store_true")
     parser.add_argument("--cache", action="store_true")
-    parser.add_argument("--compressed", action="store_true")
     parser.add_argument("--instances", type=int, default=1)
     parser.add_argument("--tlas", action="store_true")
     parser.add_argument("--pathtrace", type=int, default=0,
@@ -134,10 +137,12 @@ def main(argv=None) -> int:
           f"max subdivision level {mesh.max_level}, "
           f"uniform={mesh.has_uniform_subdivision_level()}")
     ds = scene_mod.build_device_scene(mesh, tessellated=args.tessellated,
+                                      compressed=args.compressed,
                                       device=args.device)
+    mode = ("tessellated" if args.tessellated
+            else "compressed" if args.compressed else "micromesh")
     print(f"scene build: {time.perf_counter() - t0:.2f}s "
-          f"(mode={'tessellated' if args.tessellated else 'micromesh'}, "
-          f"device={args.device})")
+          f"(mode={mode}, device={args.device})")
 
     tb = camera.Trackball(distance=args.distance)
     tb.set_camera([0.0, 0.0, 0.0],

@@ -47,9 +47,10 @@ class RenderConfig:
     light_color: tuple[float, float, float] = (1.0, 1.0, 1.0)
     light_intensity: float = 22.0
 
-    # Per-tile cluster-list capacity of one trace launch. A scene whose
-    # cluster count exceeds it needs the windowed kernel mode (not ported
-    # yet); 256 keeps a 200-cluster (51k-tri) scene on the fused path.
+    # Per-tile cluster-list capacity of one trace launch. A scene with
+    # more clusters is traced in windows of this many clusters (the
+    # windowed kernel mode); 256 keeps a 200-cluster (51k-tri) scene on
+    # the fused single-launch path.
     kernel_clusters_per_window: int = 256
     # Sub-cones per 32x32 tile for the kernel's per-unit cull. 4 (vertical
     # 8-px strips) for coherent primary frames; 8 for silhouette-heavy
@@ -58,8 +59,9 @@ class RenderConfig:
     # Rows in the sub-cone grid (1 = vertical strips). Must divide
     # sub_frusta and the 32-px tile height.
     sub_rows: int = 1
-    # Generate primary rays inside the kernel from the inv-view-proj
-    # scalars of the frustum pack (the only mode the port's kernel has).
+    # Generate primary rays inside the fused kernel from the inv-view-proj
+    # scalars of the frustum pack; False reads them from a ray matrix
+    # built by the prologue (as the windowed mode always does).
     kernel_raygen: bool = True
 
 

@@ -1,14 +1,23 @@
-// Fused tile trace + shade for NVIDIA Hopper (sm_90a).
+// Tile trace for NVIDIA Hopper (sm_90a): the walk of every ported mode.
 //
-// Replaces the TPU kernel rtmm_tpu/ops/pallas_tiled.py::trace_pallas in
-// its main-path mode: fused + in-kernel raygen + precomputed tables (body
-// _kernel -> _trace_tile_nonempty, pallas_call at pallas_tiled.py:1336).
-// The plain PyTorch version of the same walk is
-// rtmm_tpu_torch/ops/tile_trace.py::trace_fused_plain; the two do the same
-// float32 operations in the same order, and this file is built with
-// -fmad=false (no a*b+c contraction) and without fast math, so they agree
-// bit for bit except where a reduction order differs (the tie-sum of
-// winner normals when several leaves hit at exactly the same t).
+// Replaces the TPU kernel rtmm_tpu/ops/pallas_tiled.py::trace_pallas
+// (body _kernel -> _trace_tile_nonempty, pallas_call at
+// pallas_tiled.py:1336) in three of its modes, as template parameters of
+// one kernel over one walk:
+//   K1a  fused: in-kernel raygen (or a ray-matrix input), precomputed
+//        unit tables, shaded in-kernel;
+//   K1b  windowed (Windowed): one cluster window of a longer walk; the ray
+//        matrix is an input, the running best hit (t, summed winner
+//        normal, visit/eligible counters) is carried in and out, no shading;
+//   K1c  compressed (Compressed): each visited unit's tables are derived
+//        from its displaced grid-vertex record (_derive_unit, :309-465)
+//        instead of read from unit_qn; in fused or windowed mode.
+// The plain PyTorch versions are rtmm_tpu_torch/ops/tile_trace.py::
+// trace_fused_plain and trace_windowed_plain; they do the same float32
+// operations in the same order, and this file is built with -fmad=false
+// (no a*b+c contraction) and without fast math, so they agree bit for bit
+// except where a reduction order differs (the tie-sum of winner normals
+// when several leaves hit at exactly the same t).
 //
 // Design. One block per 32x32 ray tile, one thread per ray (1,024
 // threads). The block walks the tile's front-to-back cluster list: the
@@ -22,17 +31,24 @@
 // block max-reductions (warp shuffles + shared atomics on order-preserving
 // integer keys: a max is exact in any order). The tile stops when the
 // worst bound is below the next cluster's entry distance; empty tiles
-// write the background and leave.
+// write the background (fused) or pass the carries through (windowed).
+// Compressed staging loads the two records' <= 45 positions into shared
+// memory and derives one (unit, leaf) per thread on 128 threads; the
+// corner gather is an indexed load (the TPU's one-hot matmul gathers the
+// same value exactly).
 //
 // What bounds it: arithmetic. Each (ray, leaf) test is ~55 float32
 // operations (four 6-term dot products, one correctly rounded division,
-// four products and the compares); the unit tables are read once per
-// visit from L2 into shared memory and broadcast to all 1,024 threads, so
-// device-memory traffic is small (chip_smoke.py prints both bounds).
-// This first version aims to be right; it uses no tensor cores.
+// four products and the compares); the unit tables or records are read
+// once per visit from L2 into shared memory and broadcast to all 1,024
+// threads, so device-memory traffic is small (chip_smoke.py prints both
+// bounds). The compressed derive adds ~100 operations per leaf per visit,
+// done by 128 threads while the other 896 wait at the barrier. This
+// first version aims to be right; it uses no tensor cores.
 //
 // The TPU mechanics are left behind: bf16 hi/lo splits, one-hot matmul
-// gathers and transposes, DMA semaphores, tiles_per_block, A/B knobs.
+// gathers and transposes, the widened gather layout, DMA semaphores,
+// tiles_per_block, A/B knobs.
 
 #include <cuda_runtime.h>
 
@@ -49,6 +65,7 @@ constexpr int kUpc = 64;                   // units per cluster
 constexpr int kMetaLanes = 128;            // cluster_unit_meta row width
 constexpr int kQnCols = 4 * kLpu + 128;    // unit_qn row: det|u|v|t|normals
 constexpr int kMaxSub = 8;
+constexpr int kGridLanes = 128;            // compressed record row width
 constexpr float kBig = 1e30f;              // miss sentinel
 constexpr float kUvEps = 1e-3f;            // MT_UV_EPS, intersection.hlsl:413
 constexpr int kIMax = 0x7FFFFFFF;          // removed / ineligible key
@@ -74,6 +91,38 @@ struct Shared {
   int ws_key[kMaxSub];       // per-sub worst bound, order-preserving int
   int pk[2][2];              // per-warp two smallest keys
   int pick[2];
+  float pos[2][3][kGridLanes];  // compressed: staged records' positions
+  int cidx[2][3][kLpu];         // compressed: leaf-corner lanes per slot
+};
+
+// Where a unit's tables come from: precomputed unit_qn rows, or compressed
+// records with shared corner lanes (corners) or per-unit index rows.
+struct Tables {
+  const float* unit_qn;  // (U, 8, kQnCols), precomputed scenes
+  const float* grid;     // (U, grows, kGridLanes), compressed scenes
+  const int* corners;    // (3, kLpu) shared lanes; null: record rows 3-5
+  int grows;
+};
+
+// Kernel arguments of every mode (the unused ones are null).
+struct Args {
+  const int* ccand;      // (N, kc) front-to-back cluster lists
+  const int* ccount;     // (N,)
+  const float* centry;   // (N, kc) cluster entry distances
+  const float* frus;     // (N, pack) per-tile scalar pack
+  const float* raymat;   // (N, 8, kTile) rows [d, m, s, 1]; null: raygen
+  const float* meta;     // (C, 8, kMetaLanes) per-cluster unit AABBs
+  Tables tab;
+  float* image;          // fused: (F, ph, pw, 3) rgb
+  const float* t_in;     // windowed carries in: (N, kTile) best t,
+  const float* n_in;     //   (N, 3, kTile) summed winner normals,
+  const int* vis_in;     //   (N,) visits and (N,) eligible so far
+  const int* elig_in;
+  float* t_out;          // windowed carries out, same layouts
+  float* n_out;
+  int* visits;           // (N,) per-tile counters
+  int* eligible;
+  int kc, pack, tiles_per_frame, tx, pw, ph, nsub, nrows;
 };
 
 // NaN-propagating max/min (jnp.maximum / torch.maximum semantics).
@@ -200,7 +249,7 @@ __device__ void pick2(Shared& sh, int nsub, int tid) {
 __device__ void stage_units(Shared& sh, const float* __restrict__ unit_qn,
                             int cl, int ua, int ub, int nslot, float ax,
                             float ay, float az, int tid) {
-  constexpr int kCols = 6 * kLpu;
+  constexpr int kCols = 6 * kLpu;  // 2 slots x 384 + 2 x 64 <= kTile threads
   if (tid < nslot * kCols) {
     const int slot = tid / kCols;
     const int row = (tid % kCols) / kLpu;
@@ -224,6 +273,82 @@ __device__ void stage_units(Shared& sh, const float* __restrict__ unit_qn,
                       + (az - cz) * q[2 * kQnCols + k];
     sh.tn[slot][k] = -s_neg - q[3 * kQnCols + 4 * kLpu + k];
     for (int r = 0; r < 3; ++r) sh.nrm[slot][r][k] = q[r * kQnCols + 4 * kLpu + k];
+  }
+  __syncthreads();
+}
+
+// Derive the picked units' tables from their compressed records
+// (_derive_unit): positions into shared memory, then one thread per
+// (unit, leaf) forms e1, e2, n, w1, w2 recentered on the unit AABB center,
+// e2.w2, t_num = (a-c).n - e2.w2 and the normalised normal, in
+// _derive_unit's order, into the same q / tn / nrm layout as stage_units
+// (w column (det - u) - v on the q columns). Shared corner lanes were
+// loaded into sh.cidx once per block; indexed records carry their own.
+__device__ void stage_grid_units(Shared& sh, const Tables& tab, int cl,
+                                 int ua, int ub, int nslot, float ax,
+                                 float ay, float az, int tid) {
+  constexpr int kPos = 3 * kGridLanes;
+  if (tid < nslot * kPos) {
+    const int slot = tid / kPos;
+    const int r = (tid % kPos) / kGridLanes;
+    const int l = tid % kGridLanes;
+    const int u = slot ? ub : ua;
+    sh.pos[slot][r][l] = tab.grid[
+        (static_cast<size_t>(cl * kUpc + u) * tab.grows + r) * kGridLanes + l];
+  }
+  if (tab.corners == nullptr && tid < nslot * 3 * kLpu) {
+    const int slot = tid / (3 * kLpu);
+    const int j = (tid % (3 * kLpu)) / kLpu;
+    const int k = tid % kLpu;
+    const int u = slot ? ub : ua;
+    const float f = tab.grid[
+        (static_cast<size_t>(cl * kUpc + u) * tab.grows + 3 + j) * kGridLanes
+        + k];
+    // Lane indices are small integers in float32 (truncating cast, as
+    // astype(int32)); the clamp only guards memory against a bad record.
+    sh.cidx[slot][j][k] = min(max(static_cast<int>(f), 0), kGridLanes - 1);
+  }
+  __syncthreads();
+  if (tid < nslot * kLpu) {
+    const int slot = tid / kLpu;
+    const int k = tid % kLpu;
+    const int u = slot ? ub : ua;
+    const float cx = sh.ctr[0][u], cy = sh.ctr[1][u], cz = sh.ctr[2][u];
+    const int i0 = sh.cidx[slot][0][k], i1 = sh.cidx[slot][1][k];
+    const int i2 = sh.cidx[slot][2][k];
+    const float (*p)[kGridLanes] = sh.pos[slot];
+    const float v0x = p[0][i0], v0y = p[1][i0], v0z = p[2][i0];
+    const float e1x = p[0][i1] - v0x, e1y = p[1][i1] - v0y;
+    const float e1z = p[2][i1] - v0z;
+    const float e2x = p[0][i2] - v0x, e2y = p[1][i2] - v0y;
+    const float e2z = p[2][i2] - v0z;
+    const float cx0 = v0x - cx, cy0 = v0y - cy, cz0 = v0z - cz;
+    const float nx = e1y * e2z - e1z * e2y;
+    const float ny = e1z * e2x - e1x * e2z;
+    const float nz = e1x * e2y - e1y * e2x;
+    const float w1x = e2y * cz0 - e2z * cy0;
+    const float w1y = e2z * cx0 - e2x * cz0;
+    const float w1z = e2x * cy0 - e2y * cx0;
+    const float w2x = cy0 * e1z - cz0 * e1y;
+    const float w2y = cz0 * e1x - cx0 * e1z;
+    const float w2z = cx0 * e1y - cy0 * e1x;
+    const float e2w2 = e2x * w2x + e2y * w2y + e2z * w2z;
+    sh.tn[slot][k] = (ax - cx) * nx + (ay - cy) * ny + (az - cz) * nz - e2w2;
+    // q rows [-n | -w1 | -w2] over the d rows, [0 | e2 | -e1] over the
+    // moment rows.
+    const float qd[6] = {-nx, -ny, -nz, 0.0f, 0.0f, 0.0f};
+    const float qu[6] = {-w1x, -w1y, -w1z, e2x, e2y, e2z};
+    const float qv[6] = {-w2x, -w2y, -w2z, -e1x, -e1y, -e1z};
+    for (int r = 0; r < 6; ++r) {
+      sh.q[slot][r][k] = qd[r];
+      sh.q[slot][r][kLpu + k] = qu[r];
+      sh.q[slot][r][2 * kLpu + k] = qv[r];
+      sh.q[slot][r][3 * kLpu + k] = (qd[r] - qu[r]) - qv[r];
+    }
+    const float nn = jmax(sqrtf(nx * nx + ny * ny + nz * nz), 1e-20f);
+    sh.nrm[slot][0][k] = nx / nn;
+    sh.nrm[slot][1][k] = ny / nn;
+    sh.nrm[slot][2][k] = nz / nn;
   }
   __syncthreads();
 }
@@ -322,66 +447,89 @@ __device__ void shade_rows(float nx, float ny, float nz, float vx, float vy,
   }
 }
 
+template <bool Compressed, bool Windowed>
 __global__ void __launch_bounds__(kTile, 1)
-tile_trace_fused_kernel(const int* __restrict__ ccand,
-                        const int* __restrict__ ccount,
-                        const float* __restrict__ centry,
-                        const float* __restrict__ frus,
-                        const float* __restrict__ meta,
-                        const float* __restrict__ unit_qn,
-                        float* __restrict__ image, int* __restrict__ visits,
-                        int* __restrict__ eligible, int kc, int pack,
-                        int tiles_per_frame, int tx, int pw, int ph,
-                        int nsub, int nrows, const Params P) {
+tile_trace_kernel(const Args a, const Params P) {
   __shared__ Shared sh;
   const int row = blockIdx.x;                 // tile row, frame-major
   const int tid = threadIdx.x;
   const int pr = tid / kTileW, pc = tid % kTileW;
-  const int frame = row / tiles_per_frame, t = row % tiles_per_frame;
-  const int py = (t / tx) * kTileH + pr, px = (t % tx) * kTileW + pc;
-  float* out = image + ((static_cast<size_t>(frame) * ph + py) * pw + px) * 3;
-  const float* fr = frus + static_cast<size_t>(row) * pack;
-  const int ccnt = min(ccount[row], kc);
-  if (ccnt <= 0) {                            // empty tile: background
-    out[0] = P.bg[0];
-    out[1] = P.bg[1];
-    out[2] = P.bg[2];
-    if (tid == 0) {
-      visits[row] = 0;
-      eligible[row] = 0;
+  const float* fr = a.frus + static_cast<size_t>(row) * a.pack;
+  const size_t ray = static_cast<size_t>(row) * kTile + tid;
+  float* out = nullptr;
+  if (!Windowed) {
+    const int frame = row / a.tiles_per_frame, t = row % a.tiles_per_frame;
+    const int py = (t / a.tx) * kTileH + pr, px = (t % a.tx) * kTileW + pc;
+    out = a.image + ((static_cast<size_t>(frame) * a.ph + py) * a.pw + px) * 3;
+  }
+  const int ccnt = min(a.ccount[row], a.kc);
+  if (ccnt <= 0) {
+    if (Windowed) {                           // empty tile: carries through
+      a.t_out[ray] = a.t_in[ray];
+      for (int r = 0; r < 3; ++r) {
+        const size_t i = (static_cast<size_t>(row) * 3 + r) * kTile + tid;
+        a.n_out[i] = a.n_in[i];
+      }
+      if (tid == 0) {
+        a.visits[row] = a.vis_in[row];
+        a.eligible[row] = a.elig_in[row];
+      }
+    } else {                                  // empty tile: background
+      out[0] = P.bg[0];
+      out[1] = P.bg[1];
+      out[2] = P.bg[2];
+      if (tid == 0) {
+        a.visits[row] = 0;
+        a.eligible[row] = 0;
+      }
     }
     return;
   }
 
-  // In-kernel raygen (_raygen_rows): explicit unproject, true divisions.
-  const int rg = 3 + nsub * 12;
-  const float* m = fr + rg + 2;
-  const float u = (fr[rg] + static_cast<float>(pc) + 0.5f) / P.width;
-  const float v = (fr[rg + 1] + static_cast<float>(pr) + 0.5f) / P.height;
-  const float ndc_x = u * 2.0f - 1.0f;
-  const float ndc_y = -(v * 2.0f - 1.0f);
-  float pn[4], pf[4];
-  for (int i = 0; i < 4; ++i) {
-    pn[i] = m[4 * i] * ndc_x + m[4 * i + 1] * ndc_y + m[4 * i + 3];
-    pf[i] = m[4 * i] * ndc_x + m[4 * i + 1] * ndc_y
-          + (m[4 * i + 2] + m[4 * i + 3]);
-  }
-  const float ox = pn[0] / pn[3], oy = pn[1] / pn[3], oz = pn[2] / pn[3];
-  float dx = pf[0] / pf[3] - ox;
-  float dy = pf[1] / pf[3] - oy;
-  float dz = pf[2] / pf[3] - oz;
-  const float ln = sqrtf(dx * dx + dy * dy + dz * dz);
-  dx = dx / ln;
-  dy = dy / ln;
-  dz = dz / ln;
   const float ax = fr[0], ay = fr[1], az = fr[2];
-  const float s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz;
-  const float mx = ay * dz - az * dy;
-  const float my = az * dx - ax * dz;
-  const float mz = ax * dy - ay * dx;
+  float dx, dy, dz, s, mx, my, mz;
+  const bool raygen = a.raymat == nullptr;
+  if (raygen) {
+    // In-kernel raygen (_raygen_rows): explicit unproject, true divisions.
+    const int rg = 3 + a.nsub * 12;
+    const float* m = fr + rg + 2;
+    const float u = (fr[rg] + static_cast<float>(pc) + 0.5f) / P.width;
+    const float v = (fr[rg + 1] + static_cast<float>(pr) + 0.5f) / P.height;
+    const float ndc_x = u * 2.0f - 1.0f;
+    const float ndc_y = -(v * 2.0f - 1.0f);
+    float pn[4], pf[4];
+    for (int i = 0; i < 4; ++i) {
+      pn[i] = m[4 * i] * ndc_x + m[4 * i + 1] * ndc_y + m[4 * i + 3];
+      pf[i] = m[4 * i] * ndc_x + m[4 * i + 1] * ndc_y
+            + (m[4 * i + 2] + m[4 * i + 3]);
+    }
+    const float ox = pn[0] / pn[3], oy = pn[1] / pn[3], oz = pn[2] / pn[3];
+    dx = pf[0] / pf[3] - ox;
+    dy = pf[1] / pf[3] - oy;
+    dz = pf[2] / pf[3] - oz;
+    const float ln = sqrtf(dx * dx + dy * dy + dz * dz);
+    dx = dx / ln;
+    dy = dy / ln;
+    dz = dz / ln;
+    s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz;
+    mx = ay * dz - az * dy;
+    my = az * dx - ax * dz;
+    mz = ax * dy - ay * dx;
+  } else {
+    // Ray-matrix input: rows [d, a x d, s, 1] of this tile's rays.
+    const float* rm = a.raymat + static_cast<size_t>(row) * 8 * kTile + tid;
+    dx = rm[0 * kTile];
+    dy = rm[1 * kTile];
+    dz = rm[2 * kTile];
+    mx = rm[3 * kTile];
+    my = rm[4 * kTile];
+    mz = rm[5 * kTile];
+    s = rm[6 * kTile];
+  }
 
-  // Per-ray reach: slab exit through the inflated scene AABB.
-  const float* box = fr + rg + 18;
+  // Per-ray reach: slab exit through the inflated scene AABB, which
+  // follows the raygen scalars when the pack has them.
+  const float* box = fr + 3 + 12 * a.nsub + (raygen ? 18 : 0);
   const float dd[3] = {dx, dy, dz}, aa[3] = {ax, ay, az};
   float exit_t = 0.0f;
   for (int k = 0; k < 3; ++k) {
@@ -394,25 +542,44 @@ tile_trace_fused_kernel(const int* __restrict__ ccand,
   const float pmin = P.t_min + s;
   const float pmax = P.t_max + s;
 
-  const int ncols = nsub / nrows;
+  const int nsub = a.nsub;
+  const int ncols = nsub / a.nrows;
   const int sub_lanes = kTileW / ncols;
-  const int my_sub = (pr / (kTileH / nrows)) * ncols + pc / sub_lanes;
+  const int my_sub = (pr / (kTileH / a.nrows)) * ncols + pc / sub_lanes;
 
+  // The running best: fresh (fused), or carried from earlier windows.
   float bt = kBig, bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
   int nv = 0, ne = 0;
+  if (Windowed) {
+    bt = a.t_in[ray];
+    bnx = a.n_in[(static_cast<size_t>(row) * 3 + 0) * kTile + tid];
+    bny = a.n_in[(static_cast<size_t>(row) * 3 + 1) * kTile + tid];
+    bnz = a.n_in[(static_cast<size_t>(row) * 3 + 2) * kTile + tid];
+    nv = a.vis_in[row];
+    ne = a.elig_in[row];
+  }
+  if (Compressed && a.tab.corners != nullptr && tid < 3 * kLpu) {
+    const int c = a.tab.corners[tid];         // shared corner lanes
+    sh.cidx[0][tid / kLpu][tid % kLpu] = c;
+    sh.cidx[1][tid / kLpu][tid % kLpu] = c;
+  }
   float wmax = worst_subs(sh, bt, s, exit_t, my_sub, nsub, sub_lanes, tid);
-  const int* cand = ccand + static_cast<size_t>(row) * kc;
-  const float* entry = centry + static_cast<size_t>(row) * kc;
+  const int* cand = a.ccand + static_cast<size_t>(row) * a.kc;
+  const float* entry = a.centry + static_cast<size_t>(row) * a.kc;
   // Cluster stop rule (cluster_cond): no remaining cluster can beat the
   // tile's worst bound.
-  for (int ci = 0; ci < ccnt && wmax >= entry[min(ci, kc - 1)]; ++ci) {
+  for (int ci = 0; ci < ccnt && wmax >= entry[min(ci, a.kc - 1)]; ++ci) {
     const int cl = cand[ci];
-    load_cluster(sh, meta, cl, fr, nsub, ax, ay, az, tid);
+    load_cluster(sh, a.meta, cl, fr, nsub, ax, ay, az, tid);
     pick2(sh, nsub, tid);
     int ua = sh.pick[0], ub = sh.pick[1];
     while (ua < 128) {
       const bool hasb = ub < 128;
-      stage_units(sh, unit_qn, cl, ua, ub, hasb ? 2 : 1, ax, ay, az, tid);
+      if (Compressed)
+        stage_grid_units(sh, a.tab, cl, ua, ub, hasb ? 2 : 1, ax, ay, az, tid);
+      else
+        stage_units(sh, a.tab.unit_qn, cl, ua, ub, hasb ? 2 : 1, ax, ay, az,
+                    tid);
       process_unit(sh, 0, ua, dx, dy, dz, mx, my, mz, s, pmin, pmax,
                    bt, bnx, bny, bnz);
       // (The TPU kernel recomputes unit A in a slot with no B: an
@@ -429,40 +596,117 @@ tile_trace_fused_kernel(const int* __restrict__ ccand,
     }
   }
 
-  // Epilogue: normalise the selected normal, shade against -d.
-  const float nn = jmax(sqrtf(bnx * bnx + bny * bny + bnz * bnz), 1e-20f);
-  float rgb[3];
-  shade_rows(bnx / nn, bny / nn, bnz / nn, -dx, -dy, -dz, bt < kBig, P, rgb);
-  out[0] = rgb[0];
-  out[1] = rgb[1];
-  out[2] = rgb[2];
-  if (tid == 0) {
-    visits[row] = nv;
-    eligible[row] = ne;
+  if (Windowed) {
+    // Carries out: best t, unnormalised summed winner normal, counters.
+    a.t_out[ray] = bt;
+    a.n_out[(static_cast<size_t>(row) * 3 + 0) * kTile + tid] = bnx;
+    a.n_out[(static_cast<size_t>(row) * 3 + 1) * kTile + tid] = bny;
+    a.n_out[(static_cast<size_t>(row) * 3 + 2) * kTile + tid] = bnz;
+  } else {
+    // Epilogue: normalise the selected normal, shade against -d.
+    const float nn = jmax(sqrtf(bnx * bnx + bny * bny + bnz * bnz), 1e-20f);
+    float rgb[3];
+    shade_rows(bnx / nn, bny / nn, bnz / nn, -dx, -dy, -dz, bt < kBig, P,
+               rgb);
+    out[0] = rgb[0];
+    out[1] = rgb[1];
+    out[2] = rgb[2];
   }
+  if (tid == 0) {
+    a.visits[row] = nv;
+    a.eligible[row] = ne;
+  }
+}
+
+template <bool Windowed>
+int launch(const Args& a, int n_rows, const float* host_params,
+           int n_params, void* stream) {
+  if (n_params != kNumParams || a.nsub < 1 || a.nsub > kMaxSub ||
+      a.nrows < 1 || a.nsub % a.nrows != 0 || a.kc < 1 || n_rows < 1 ||
+      (a.tab.unit_qn == nullptr) == (a.tab.grid == nullptr) ||
+      (a.tab.grid != nullptr && a.tab.grows < (a.tab.corners ? 3 : 6)) ||
+      (Windowed && a.raymat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  std::memcpy(&p, host_params, sizeof(Params));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.tab.grid != nullptr)
+    tile_trace_kernel<true, Windowed><<<n_rows, kTile, 0, st>>>(a, p);
+  else
+    tile_trace_kernel<false, Windowed><<<n_rows, kTile, 0, st>>>(a, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch the fused trace over n_rows tile rows on `stream`. host_params
-// points to kNumParams floats in host memory (Params). Returns the CUDA
-// error code of the launch (0 = launched).
+// Fused trace + shade over n_rows tile rows on `stream` (K1a, K1c).
+// raymat null = in-kernel raygen; exactly one of unit_qn (precomputed) and
+// grid (compressed records, grows rows each; corners null = per-unit index
+// rows 3-5) is set. host_params points to kNumParams floats in host memory
+// (Params). Returns the CUDA error code of the launch (0 = launched).
 extern "C" int rtmm_tile_trace_fused(
     const int* ccand, const int* ccount, const float* centry,
-    const float* frus, const float* meta, const float* unit_qn, float* image,
-    int* visits, int* eligible, int n_rows, int kc, int pack,
+    const float* frus, const float* raymat, const float* meta,
+    const float* unit_qn, const float* grid, const int* corners, int grows,
+    float* image, int* visits, int* eligible, int n_rows, int kc, int pack,
     int tiles_per_frame, int tx, int pw, int ph, int nsub, int nrows,
     const float* host_params, int n_params, void* stream) {
-  if (n_params != kNumParams || nsub < 1 || nsub > kMaxSub || nrows < 1 ||
-      nsub % nrows != 0 || kc < 1 || n_rows < 1)
+  Args a = {};
+  a.ccand = ccand;
+  a.ccount = ccount;
+  a.centry = centry;
+  a.frus = frus;
+  a.raymat = raymat;
+  a.meta = meta;
+  a.tab = Tables{unit_qn, grid, corners, grows};
+  a.image = image;
+  a.visits = visits;
+  a.eligible = eligible;
+  a.kc = kc;
+  a.pack = pack;
+  a.tiles_per_frame = tiles_per_frame;
+  a.tx = tx;
+  a.pw = pw;
+  a.ph = ph;
+  a.nsub = nsub;
+  a.nrows = nrows;
+  if (image == nullptr || tiles_per_frame < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  std::memcpy(&p, host_params, sizeof(Params));
-  tile_trace_fused_kernel<<<n_rows, kTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      ccand, ccount, centry, frus, meta, unit_qn, image, visits, eligible, kc,
-      pack, tiles_per_frame, tx, pw, ph, nsub, nrows, p);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, n_rows, host_params, n_params, stream);
+}
+
+// One cluster window over n_rows tile rows (K1b, with K1c when grid is
+// set): carries t_in (N, 1024), n_in (N, 3, 1024), vis_in / elig_in (N,)
+// fold into t_out, n_out, vis_out, elig_out. Tables and params as above.
+extern "C" int rtmm_tile_trace_windowed(
+    const int* ccand, const int* ccount, const float* centry,
+    const float* frus, const float* raymat, const float* meta,
+    const float* unit_qn, const float* grid, const int* corners, int grows,
+    const float* t_in, const float* n_in, const int* vis_in,
+    const int* elig_in, float* t_out, float* n_out, int* vis_out,
+    int* elig_out, int n_rows, int kc, int pack, int nsub, int nrows,
+    const float* host_params, int n_params, void* stream) {
+  Args a = {};
+  a.ccand = ccand;
+  a.ccount = ccount;
+  a.centry = centry;
+  a.frus = frus;
+  a.raymat = raymat;
+  a.meta = meta;
+  a.tab = Tables{unit_qn, grid, corners, grows};
+  a.t_in = t_in;
+  a.n_in = n_in;
+  a.vis_in = vis_in;
+  a.elig_in = elig_in;
+  a.t_out = t_out;
+  a.n_out = n_out;
+  a.visits = vis_out;
+  a.eligible = elig_out;
+  a.kc = kc;
+  a.pack = pack;
+  a.nsub = nsub;
+  a.nrows = nrows;
+  return launch<true>(a, n_rows, host_params, n_params, stream);
 }
 
 extern "C" const char* rtmm_cuda_error_string(int err) {

@@ -19,6 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ..ops import compressed as comp
 from ..ops import precompute, subdivision
 from ..ops.culling import UNITS_PER_CLUSTER
 from . import mesh as mesh_mod
@@ -27,8 +28,6 @@ BIG = np.float32(1e30)
 
 # Static (non-tensor) fields; everything else is a tensor or None.
 META_FIELDS = ("max_level", "compressed", "sub_level", "indexed")
-
-_COMPRESSED = "compressed scenes: later slice (K1c)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +80,11 @@ class DeviceScene:
     unit_nrm: torch.Tensor       # (U, LPU, 3) normalized shading normals
     unit_nrm_pad: torch.Tensor   # (U, 8, >=128) padded normal table
     unit_q16: torch.Tensor       # (U, 16, 4*LPU) arbitrary-origin MT table
-    # Compressed mode only (not ported yet): always None here.
+    # Compressed mode only: per-unit displaced grid-vertex records
+    # (ops/compressed.py), (U, GRID_ROWS | IDX_ROWS, GRID_LANES) f32. A
+    # compressed scene holds only these, the AABBs and the cluster tables
+    # (every precomputed table above is None): the trace kernel derives
+    # each visited unit's tables from its record.
     unit_grid: torch.Tensor | None
     # Scene-level hierarchy over units (the TLAS role): cluster c covers the
     # Morton-consecutive units [c*UNITS_PER_CLUSTER, (c+1)*UNITS_PER_CLUSTER).
@@ -93,9 +96,14 @@ class DeviceScene:
     # 0..UNITS_PER_CLUSTER-1.
     cluster_unit_meta: torch.Tensor  # (C, 8, 128) f32
     max_level: int
-    compressed: bool = False
-    sub_level: int = 0
+    compressed: bool = False   # unit_grid-only scene (see above)
+    sub_level: int = 0         # grid sub-level of a unit (compressed)
+    # Compressed records carry per-unit leaf-corner lane indices (rows
+    # 3-5, ops/compressed.py IDX_ROWS): mixed-level / stitched meshes and
+    # level < 3 meshes packed several triangles per unit.
     indexed: bool = False
+    # Shared gather matrix (GRID_LANES, 3*LPU) of an indexed scene whose
+    # units all share one topology; None when topologies differ.
     unit_gmat: torch.Tensor | None = None
 
     @property
@@ -108,6 +116,8 @@ class DeviceScene:
 
     @property
     def leaves_per_unit(self) -> int:
+        if self.unit_qn is None:
+            return LPU
         return (self.unit_qn.shape[2] - 128) // 4
 
     @property
@@ -120,7 +130,7 @@ class DeviceScene:
 
     @property
     def device(self) -> torch.device:
-        return self.unit_qn.device
+        return self.unit_aabb_min.device
 
     def device_bytes(self) -> int:
         """Bytes of every tensor the scene holds on its device."""
@@ -147,10 +157,8 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray], *,
     opened .npz works): the meta fields max_level / compressed / sub_level
     / indexed, plus every field that is not None. A missing field is None.
     So a scene the JAX package built runs through the port on the very
-    same tables.
+    same tables, compressed records (unit_grid, unit_gmat) included.
     """
-    if bool(np.asarray(arrays["compressed"])):
-        raise NotImplementedError(_COMPRESSED)
     keys = set(arrays.keys())
     tensors = {f.name: (_to_device(np.asarray(arrays[f.name]), device)
                         if f.name in keys else None)
@@ -158,7 +166,7 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray], *,
                if f.name not in META_FIELDS}
     return DeviceScene(
         max_level=int(np.asarray(arrays["max_level"])),
-        compressed=False,
+        compressed=bool(np.asarray(arrays["compressed"])),
         sub_level=int(np.asarray(arrays["sub_level"])),
         indexed=(bool(np.asarray(arrays["indexed"]))
                  if "indexed" in keys else False),
@@ -184,9 +192,18 @@ def build_device_scene(mesh: mesh_mod.MicroMesh, tessellated: bool = False,
     hierarchy=False (the default here) skips the per-node delta/min-max
     tables (node_verts/node_minmax/node_pass come back None): only the
     per-ray reference backend reads them, and it is not ported yet.
+
+    compressed=True builds the direct-tracing scene (ops/compressed.py):
+    only per-unit grid-vertex records go to the device (~32 B per
+    micro-triangle against ~580 B for the precomputed tables), and the
+    trace kernel derives each visited unit's tables.
     """
     if compressed:
-        raise NotImplementedError(_COMPRESSED)
+        if tessellated:
+            raise ValueError("compressed mode traces the micro-mesh "
+                             "directly; tessellated (-T) mode precomputes "
+                             "triangles by definition")
+        return build_compressed_scene(mesh, device=device)
     t_real = mesh.num_triangles
     uniform = (mesh.has_uniform_subdivision_level()
                and all(t.u_present.all() for t in mesh.triangles))
@@ -423,6 +440,257 @@ def build_clusters(unit_aabb_min: np.ndarray, unit_aabb_max: np.ndarray,
     return dict(cluster_aabb_min=cluster_aabb_min,
                 cluster_aabb_max=cluster_aabb_max,
                 cluster_valid=cluster_valid, cluster_unit_meta=meta)
+
+
+def _compressed_scene(aabb_min, aabb_max, tri_valid, unit_grid,
+                      unit_aabb_min, unit_aabb_max, unit_valid, device,
+                      **meta) -> DeviceScene:
+    """Upload a compressed scene: records, AABBs and cluster tables only."""
+    clusters = build_clusters(unit_aabb_min, unit_aabb_max, unit_valid)
+    unit_gmat = meta.pop("unit_gmat", None)
+
+    def dev(x):
+        return _to_device(x, device)
+
+    return DeviceScene(
+        aabb_min=dev(aabb_min), aabb_max=dev(aabb_max),
+        plane_t=None, plane_b=None, plane_n=None, plane_o=None,
+        node_verts=None, node_minmax=None, node_pass=None,
+        leaf_verts=None, leaf_mask=None, tri_valid=dev(tri_valid),
+        unit_aabb_min=dev(unit_aabb_min), unit_aabb_max=dev(unit_aabb_max),
+        unit_valid=dev(unit_valid), unit_leaf_idx=None,
+        unit_qn=None, unit_n=None, unit_e2w2=None, unit_nrm=None,
+        unit_nrm_pad=None, unit_q16=None, unit_grid=dev(unit_grid),
+        **{k: dev(v) for k, v in clusters.items()},
+        compressed=True, unit_gmat=dev(unit_gmat), **meta)
+
+
+def build_compressed_scene(mesh: mesh_mod.MicroMesh,
+                           device="cuda") -> DeviceScene:
+    """Build the compressed (derive-at-trace-time) DeviceScene.
+
+    Per unit (= one level-(L-3) subtree of one base triangle, 64 leaves):
+    a (GRID_ROWS, GRID_LANES) record of its displaced grid-vertex
+    positions plus an AABB — nothing else. Units are Morton-ordered by
+    AABB center and grouped into the same 64-unit clusters as the
+    standard build, so the culling and the kernel's cluster walk are
+    unchanged; only the per-unit tables are derived at trace time.
+
+    Mixed-level / decimated-presence meshes, and meshes below level 3,
+    take the INDEXED variant (_build_compressed_indexed): records gain
+    corner-index rows that encode each unit's stitched leaf topology.
+    """
+    uniform = (mesh.has_uniform_subdivision_level()
+               and all(t.u_present.all() for t in mesh.triangles))
+    # Level < SUB_LEVEL triangles carry fewer than LPU leaves; the indexed
+    # builder packs several triangles per unit instead of leaving unit
+    # slots and leaf lanes empty.
+    if not uniform or mesh.max_level < comp.SUB_LEVEL:
+        return _build_compressed_indexed(mesh, device)
+
+    lvl = mesh.max_level
+    gcoords, su = comp.subtree_grid_coords(lvl)
+    spt, gpts = gcoords.shape[:2]
+    t_real = mesh.num_triangles
+    u_real = t_real * spt
+    u_pad = max(_round_up(u_real, UNITS_PER_CLUSTER), UNITS_PER_CLUSTER)
+
+    unit_grid = np.zeros((u_pad, comp.GRID_ROWS, comp.GRID_LANES),
+                         np.float32)
+    unit_aabb_min = np.full((u_pad, 3), BIG, np.float32)
+    unit_aabb_max = np.full((u_pad, 3), -BIG, np.float32)
+    t_pad = max(_round_up(t_real, 8), 8)
+    aabb_min = np.full((t_pad, 3), BIG, np.float32)
+    aabb_max = np.full((t_pad, 3), -BIG, np.float32)
+    tri_valid = np.zeros((t_pad,), bool)
+    tri_valid[:t_real] = True
+
+    chunk = max(1, 4_000_000 // max(spt * gpts, 1))
+    for s in range(0, t_real, chunk):
+        e = min(s + chunk, t_real)
+        v0, v1, v2, d0, d1, d2, scales = precompute.base_and_scales(
+            mesh, s, e)
+        pos = comp.grid_positions(v0, v1, v2, d0, d1, d2, scales,
+                                  gcoords, lvl)             # (n, spt, gp, 3)
+        n = e - s
+        unit_grid[s * spt:e * spt, 0:3, :gpts] = (
+            pos.reshape(n * spt, gpts, 3).transpose(0, 2, 1))
+        unit_aabb_min[s * spt:e * spt] = pos.min(axis=2).reshape(-1, 3)
+        unit_aabb_max[s * spt:e * spt] = pos.max(axis=2).reshape(-1, 3)
+        aabb_min[s:e] = pos.min(axis=(1, 2))
+        aabb_max[s:e] = pos.max(axis=(1, 2))
+
+    unit_valid = np.zeros((u_pad,), bool)
+    unit_valid[:u_real] = True
+
+    # Morton order over unit AABB centers (spatially coherent clusters).
+    centers = 0.5 * (unit_aabb_min[:u_real] + unit_aabb_max[:u_real])
+    order = np.argsort(_morton_codes(centers), kind="stable")
+    perm = np.concatenate([order, np.arange(u_real, u_pad)])
+    return _compressed_scene(
+        aabb_min, aabb_max, tri_valid, unit_grid[perm], unit_aabb_min[perm],
+        unit_aabb_max[perm], unit_valid, device, max_level=lvl,
+        sub_level=su)
+
+
+def _pack_compressed_class(mesh, ids, idx3, ref, gcoords, lvl_g, c0, k,
+                           aabb_min, aabb_max, recs, u_mins, u_maxs):
+    """Emit one class's triangles packed k-per-unit (level < SUB_LEVEL).
+
+    The unit record's position rows hold k class-topology grids at lane
+    blocks [t*gpts, (t+1)*gpts); the corner-index rows are the class's
+    stitched topology shifted by t*gpts per slot — shared by every unit
+    of the class. The max shifted lane is k*gpts - 1 <= GRID_LANES - 2, so
+    the sentinel lane (GRID_LANES - 1, always zero) stays reserved; absent
+    slots of the last unit keep zero positions, so their leaves derive
+    det == 0. Triangles are Morton-ordered before grouping so unit AABBs
+    stay tight."""
+    spt, gpts = gcoords.shape[:2]
+    assert spt == 1 and k * gpts <= comp.GRID_LANES - 1
+    n_ids = len(ids)
+    pos = np.zeros((n_ids, gpts, 3), np.float32)
+    chunk = max(1, 4_000_000 // max(gpts, 1))
+    for s in range(0, n_ids, chunk):
+        sel = np.asarray(ids[s:s + chunk], np.int64)
+        v0, v1, v2, d0, d1, d2, scales = precompute.base_and_scales(
+            mesh, 0, 0, ids=sel)
+        pos[s:s + sel.shape[0]] = comp.grid_positions(
+            v0, v1, v2, d0, d1, d2, scales, gcoords, lvl_g)[:, 0]
+    refm = ref[0, :gpts]                               # (gpts,)
+    tmin = np.where(refm[None, :, None], pos, BIG).min(axis=1)
+    tmax = np.where(refm[None, :, None], pos, -BIG).max(axis=1)
+    ids_arr = np.asarray(ids, np.int64)
+    aabb_min[ids_arr] = tmin
+    aabb_max[ids_arr] = tmax
+
+    order = np.argsort(_morton_codes(0.5 * (tmin + tmax)), kind="stable")
+    n_units = -(-n_ids // k)
+    slot = np.full((n_units * k,), -1, np.int64)
+    slot[:n_ids] = order
+    slot = slot.reshape(n_units, k)
+    live = (slot >= 0)[..., None, None]                # (nu, k, 1, 1)
+    src = pos[np.maximum(slot, 0)]                     # (nu, k, gpts, 3)
+    mask = live & refm[None, None, :, None]
+    rec = np.zeros((n_units, comp.IDX_ROWS, comp.GRID_LANES), np.float32)
+    rec[:, 0:3, :k * gpts] = (np.where(mask, src, 0.0)
+                              .reshape(n_units, k * gpts, 3)
+                              .transpose(0, 2, 1))
+    gidx = np.full((3, comp.LPU), comp.IDX_SENTINEL, np.int64)
+    for t in range(k):
+        gidx[:, t * c0:(t + 1) * c0] = (idx3[0, :, :c0].astype(np.int64)
+                                        + t * gpts)
+    rec[:, 3:6, :] = comp.pack_index_rows(gidx[None])[0]
+    recs.append(rec)
+    u_mins.append(np.where(mask, src, BIG).min(axis=(1, 2)))
+    u_maxs.append(np.where(mask, src, -BIG).max(axis=(1, 2)))
+
+
+def _build_compressed_indexed(mesh: mesh_mod.MicroMesh,
+                              device) -> DeviceScene:
+    """Indexed compressed build for mixed-level / stitched meshes.
+
+    Triangles batch by (level, presence) class like the standard
+    non-uniform build; each class computes its stitched unit topology once
+    (compressed.stitched_unit_topology) and every triangle of the class
+    emits `spt` units whose records hold displaced grid positions (rows
+    0-2, unreferenced lanes zeroed) + the class's corner lane indices
+    (rows 3-5). Sentinel columns derive zero triangles, rejected by the
+    acceptance window.
+    """
+    groups: dict[tuple, list[int]] = {}
+    for i, t in enumerate(mesh.triangles):
+        key = (t.subdivision_level, t.u_present.tobytes())
+        groups.setdefault(key, []).append(i)
+
+    t_real = mesh.num_triangles
+    t_pad = max(_round_up(t_real, 8), 8)
+    aabb_min = np.full((t_pad, 3), BIG, np.float32)
+    aabb_max = np.full((t_pad, 3), -BIG, np.float32)
+    tri_valid = np.zeros((t_pad,), bool)
+    tri_valid[:t_real] = True
+
+    recs, u_mins, u_maxs = [], [], []
+    for (lvl_g, _), ids in groups.items():
+        present = mesh.triangles[ids[0]].u_present
+        idx3, ref, _ = comp.stitched_unit_topology(lvl_g, present)
+        gcoords, _ = comp.subtree_grid_coords(lvl_g)
+        spt, gpts = gcoords.shape[:2]
+        # Small classes (level < SUB_LEVEL: one subtree with < LPU
+        # leaves) pack k triangles per unit, so unit count and lane
+        # occupancy match the standard build.
+        c0 = int((idx3[0, 0] != comp.IDX_SENTINEL).sum()) if spt else 0
+        k = 1
+        if spt == 1 and c0:
+            k = max(1, min(comp.LPU // c0,
+                           (comp.GRID_LANES - 1) // max(gpts, 1)))
+        if k > 1:
+            _pack_compressed_class(mesh, ids, idx3, ref, gcoords, lvl_g,
+                                   c0, k, aabb_min, aabb_max,
+                                   recs, u_mins, u_maxs)
+            continue
+        idxrows = comp.pack_index_rows(idx3)          # (spt, 3, GRID_LANES)
+        refs = ref[:, :gpts]                          # (spt, gpts)
+        chunk = max(1, 4_000_000 // max(spt * gpts, 1))
+        for s in range(0, len(ids), chunk):
+            sel = np.asarray(ids[s:s + chunk], np.int64)
+            v0, v1, v2, d0, d1, d2, scales = precompute.base_and_scales(
+                mesh, 0, 0, ids=sel)
+            pos = comp.grid_positions(v0, v1, v2, d0, d1, d2, scales,
+                                      gcoords, lvl_g)  # (n, spt, gpts, 3)
+            n = sel.shape[0]
+            rm = refs[None, :, :, None]
+            rec = np.zeros((n, spt, comp.IDX_ROWS, comp.GRID_LANES),
+                           np.float32)
+            rec[:, :, 0:3, :gpts] = np.where(rm, pos, 0.0).transpose(
+                0, 1, 3, 2)
+            rec[:, :, 3:6, :] = idxrows[None]
+            recs.append(rec.reshape(n * spt, comp.IDX_ROWS,
+                                    comp.GRID_LANES))
+            umin = np.where(rm, pos, BIG).min(axis=2)   # (n, spt, 3)
+            umax = np.where(rm, pos, -BIG).max(axis=2)
+            u_mins.append(umin.reshape(-1, 3))
+            u_maxs.append(umax.reshape(-1, 3))
+            aabb_min[sel] = umin.min(axis=1)
+            aabb_max[sel] = umax.max(axis=1)
+
+    unit_grid = np.concatenate(recs) if recs else np.zeros(
+        (0, comp.IDX_ROWS, comp.GRID_LANES), np.float32)
+    unit_aabb_min = np.concatenate(u_mins) if u_mins else np.zeros(
+        (0, 3), np.float32)
+    unit_aabb_max = np.concatenate(u_maxs) if u_maxs else np.zeros(
+        (0, 3), np.float32)
+    u_real = unit_grid.shape[0]
+    u_pad = max(_round_up(u_real, UNITS_PER_CLUSTER), UNITS_PER_CLUSTER)
+
+    # Morton order over unit AABB centers, zero-record padding (all-zero
+    # indexed records gather lane 0 of zero positions -> degenerate).
+    centers = 0.5 * (unit_aabb_min + unit_aabb_max)
+    order = (np.argsort(_morton_codes(centers), kind="stable")
+             if u_real else np.zeros(0, np.int64))
+    pad = u_pad - u_real
+    unit_grid = np.concatenate(
+        [unit_grid[order],
+         np.zeros((pad, comp.IDX_ROWS, comp.GRID_LANES), np.float32)])
+    unit_aabb_min = np.concatenate(
+        [unit_aabb_min[order], np.full((pad, 3), BIG, np.float32)])
+    unit_aabb_max = np.concatenate(
+        [unit_aabb_max[order], np.full((pad, 3), -BIG, np.float32)])
+    unit_valid = np.zeros((u_pad,), bool)
+    unit_valid[:u_real] = True
+
+    # Single-topology detection: when every valid unit carries the same
+    # corner-index rows (one (level, presence) class, e.g. a uniform
+    # level-2 scene packed k per unit), the scene keeps one shared gather
+    # matrix and the kernel reads the corner lanes from it.
+    unit_gmat = None
+    if u_real and bool((unit_grid[:u_real, 3:6]
+                        == unit_grid[0:1, 3:6]).all()):
+        unit_gmat = comp.gather_matrix_from_indices(
+            comp._corner_indices_np(unit_grid[0:1])[0])
+    return _compressed_scene(
+        aabb_min, aabb_max, tri_valid, unit_grid, unit_aabb_min,
+        unit_aabb_max, unit_valid, device, max_level=mesh.max_level,
+        sub_level=comp.SUB_LEVEL, indexed=True, unit_gmat=unit_gmat)
 
 
 def _part1by2(x: np.ndarray) -> np.ndarray:

@@ -45,5 +45,8 @@ def generate_rays(inv_view_proj, width: int, height: int,
     near = unproject(0.0)                          # raygen.hlsl:26
     far = unproject(1.0)                           # raygen.hlsl:27
     d = far - near
-    d = d / torch.sqrt((d * d).sum(-1, keepdim=True))
+    # Left-to-right component sums, as the trace kernel's in-kernel raygen
+    # (a .sum(-1) reduction may add in another order on the card).
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    d = d / torch.sqrt(dx * dx + dy * dy + dz * dz)[..., None]
     return near.reshape(-1, 3), d.reshape(-1, 3)

@@ -1,25 +1,31 @@
-"""Fused tile trace + shade: the port of the JAX package's Pallas trace
-kernel in its main-path mode (rtmm_tpu/ops/pallas_tiled.py::trace_pallas,
-fused + in-kernel raygen + precomputed tables; body _kernel ->
-_trace_tile_nonempty).
+"""Tile trace: the port of the JAX package's Pallas trace kernel
+(rtmm_tpu/ops/pallas_tiled.py::trace_pallas; body _kernel ->
+_trace_tile_nonempty) in its fused, windowed and compressed modes.
 
-One launch renders whole frames. For each 32x32 ray tile it generates the
-rays, walks the tile's front-to-back cluster list, culls each cluster's 64
-units against the tile's sub-cones and per-sub worst-hit bounds, visits
-the two nearest eligible units per step (recentered-moment Möller-Trumbore
-over the unit's 64 leaves, strict-< running best), stops when no remaining
-cluster can beat the tile's worst hit, and shades the closest hits.
+For each 32x32 ray tile the kernel takes the tile's rays (generated
+in-kernel, or rows of a ray matrix), walks the tile's front-to-back
+cluster list, culls each cluster's 64 units against the tile's sub-cones
+and per-sub worst-hit bounds, visits the two nearest eligible units per
+step (recentered-moment Möller-Trumbore over the unit's 64 leaves,
+strict-< running best), and stops when no remaining cluster can beat the
+tile's worst hit. A unit's tables are read from the precomputed unit_qn
+rows, or, in a compressed scene, derived from its grid-vertex record.
 
-  trace_fused        the wrapper: launches the CUDA kernel
-                     (csrc/tile_trace.cu) on CUDA tensors; on CPU tensors
-                     it runs trace_fused_plain.
-  trace_fused_plain  the same walk in plain PyTorch (a Python loop over
-                     tiles, clusters and picks; each unit visit vectorised
-                     over 64 leaves x 1,024 rays), operation for operation
-                     the kernel's arithmetic.
-  LAUNCHES           kernel launches so far (a plain integer).
-  render_frame       one frame: prologue + one launch (render_pallas).
-  render_frames      F frames in one launch (render_pallas_frames).
+  trace_fused            fused mode (K1a, K1c): one launch traces and
+                         shades whole frames.
+  trace_windowed         windowed mode (K1b, K1c): one cluster window of a
+                         longer walk, the running best carried in and out.
+  trace_fused_plain,     the same walks in plain PyTorch (a Python loop
+  trace_windowed_plain   over tiles, clusters and picks; each unit visit
+                         vectorised over 64 leaves x 1,024 rays), operation
+                         for operation the kernel's arithmetic.
+  LAUNCHES               kernel launches so far, per kernel entry.
+  render_frame           one frame (render_pallas): fused when every
+                         tile's cluster list fits one launch, else windowed.
+  render_frames          F frames (render_pallas_frames).
+
+The wrappers launch the CUDA kernel (csrc/tile_trace.cu) on CUDA tensors
+and run the plain version on CPU tensors.
 
 Semantics kept from the TPU kernel: the w-form acceptance
 min(u, v, w) >= -MT_UV_EPS with no det guard, the p-form t-window (p = t +
@@ -30,13 +36,14 @@ integer (distance | lane) keys, and the visit/eligible counters.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from . import _f32, culling, shading, tiled
+from . import _f32, compressed, culling, shading, tiled
 from .intersect import MT_UV_EPS
 
 BIG = 1e30
@@ -49,10 +56,16 @@ MAX_SUB = 8
 # each) fit in one launch; the rgb output is then ~0.8 GB of float32.
 BATCH_TILE_CAP = 65536
 
-LAUNCHES = 0
+# Kernel launches so far, by entry: fused or windowed, precomputed or
+# compressed tables.
+KERNELS = ("tile_trace_fused", "tile_trace_fused_compressed",
+           "tile_trace_windowed", "tile_trace_windowed_compressed")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 
-_K1B = ("scenes with more clusters than cfg.kernel_clusters_per_window "
-        "need the windowed kernel mode (K1b): later slice")
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
 
 
 # ----------------------------------------------------------------------
@@ -85,6 +98,31 @@ def shade_params(cfg: RenderConfig) -> np.ndarray:
 
 
 # ----------------------------------------------------------------------
+# Scene tables.
+
+@functools.lru_cache(maxsize=None)
+def _uniform_corners(su: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(compressed.uniform_unit_indices(su)).to(device)
+
+
+def scene_tables(scene: DeviceScene):
+    """(meta, tables, options) of the trace wrappers for a scene: the
+    per-cluster unit metadata, then unit_qn, or the compressed records
+    with their corner lanes (shared by every unit, or None when each
+    indexed record carries its own)."""
+    if not scene.compressed:
+        return scene.cluster_unit_meta, scene.unit_qn, {}
+    if scene.unit_gmat is not None:
+        corners = compressed.corner_lanes(scene.unit_gmat)
+    elif scene.indexed:
+        corners = None
+    else:
+        corners = _uniform_corners(scene.sub_level, str(scene.device))
+    return (scene.cluster_unit_meta, scene.unit_grid,
+            {"compressed": True, "corners": corners})
+
+
+# ----------------------------------------------------------------------
 # Plain PyTorch version.
 
 def _worst_subs(bt, s, exit_t, smask):
@@ -95,15 +133,14 @@ def _worst_subs(bt, s, exit_t, smask):
     return torch.stack([torch.where(m, v, 0.0).amax() for m in smask])
 
 
-def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
-                      cfg, nsub, smask, lane, col_f, row_f):
-    """One tile: returns (rgb (TILE, 3), visits, eligible)."""
+def _raygen(fr, nsub, cfg, col_f, row_f):
+    """In-kernel raygen (pallas_tiled._raygen_rows): true divisions.
+    Returns the ray rows (d xyz, m = a x d xyz, s)."""
     rg = 3 + nsub * 12
 
     def m(i, j):
         return fr[rg + 2 + 4 * i + j]
 
-    # In-kernel raygen (pallas_tiled._raygen_rows): true divisions.
     u = _f32.div(fr[rg] + col_f + 0.5, float(cfg.width))
     v = _f32.div(fr[rg + 1] + row_f + 0.5, float(cfg.height))
     ndc_x = u * 2.0 - 1.0
@@ -119,12 +156,46 @@ def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
     dx, dy, dz = dx / ln, dy / ln, dz / ln
     ax, ay, az = fr[0], fr[1], fr[2]
     s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz
-    mx = ay * dz - az * dy
-    my = az * dx - ax * dz
-    mz = ax * dy - ay * dx
+    return (dx, dy, dz, ay * dz - az * dy, az * dx - ax * dz,
+            ax * dy - ay * dx, s)
 
-    # Per-ray scene-exit reach through the inflated scene AABB.
-    sb = rg + 18
+
+def _cluster_tables(tables, compressed_, corners, cl, crow, apex):
+    """The plain walk's unit tables of cluster cl: a function of the unit
+    lane u -> (qd, qu, qv (6, LPU), t_num (LPU,), nrm (3, LPU)), read from
+    unit_qn rows, or derived for all 64 compressed records at once
+    (elementwise, so each unit gets the values the kernel derives for it
+    alone)."""
+    if compressed_:
+        q, tn, nrm = compressed.derive_unit_tables(
+            tables[cl * UPC:(cl + 1) * UPC], apex, crow[:, :UPC].T, corners)
+        return lambda u: (q[u, :, 0:LPU], q[u, :, LPU:2 * LPU],
+                          q[u, :, 2 * LPU:3 * LPU], tn[u], nrm[u].T)
+    ax, ay, az = apex[0], apex[1], apex[2]
+
+    def unit(u):
+        q = tables[cl * UPC + u]                        # (8, 4*LPU + 128)
+        qd = q[0:6, 0:LPU]
+        nrm = q[0:4, 4 * LPU:5 * LPU]
+        cx, cy, cz = crow[0, u], crow[1, u], crow[2, u]
+        s_neg = (ax - cx) * qd[0] + (ay - cy) * qd[1] + (az - cz) * qd[2]
+        return (qd, q[0:6, LPU:2 * LPU], q[0:6, 2 * LPU:3 * LPU],
+                -s_neg - nrm[3], nrm[0:3])
+    return unit
+
+
+def _trace_tile_plain(fr, rays, raygen, ccand_row, centry_row, cnt, meta,
+                      tables, cfg, nsub, smask, lane, carry):
+    """One tile's walk. rays: (dx, dy, dz, mx, my, mz, s) rows of TILE
+    rays, generated from the pack's raygen scalars when raygen; tables:
+    (cl, crow) -> the cluster's unit tables (_cluster_tables); carry: the
+    running best (bt, [bnx, bny, bnz], visits, eligible) it starts from.
+    Returns the carry after the walk."""
+    dx, dy, dz, mx, my, mz, s = rays
+    ax, ay, az = fr[0], fr[1], fr[2]
+    # Per-ray scene-exit reach through the inflated scene AABB, which
+    # follows the raygen scalars when the pack has them.
+    sb = 3 + nsub * 12 + (18 if raygen else 0)
     exit_t = None
     for k, (dk, ak) in enumerate(((dx, ax), (dy, ay), (dz, az))):
         safe = torch.where(torch.abs(dk) < 1e-12,
@@ -135,23 +206,14 @@ def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
         exit_t = ek if exit_t is None else torch.minimum(exit_t, ek)
     pmin = cfg.t_min + s
     pmax = cfg.t_max + s
+    bt, bn, nv, ne = carry
 
-    bt = torch.full_like(s, BIG)
-    bn = [torch.zeros_like(s) for _ in range(3)]
-    nv = ne = 0
-
-    def process(cl, u, crow):
+    def process(unit, u, crow):
         """One unit visit: fold its 64 leaves into the running best."""
         nonlocal bt, bn
-        q = unit_qn[cl * UPC + u]                       # (8, 4*LPU + 128)
-        qd = q[0:6, 0:LPU]
-        qu = q[0:6, LPU:2 * LPU]
-        qv = q[0:6, 2 * LPU:3 * LPU]
+        qd, qu, qv, tn, nrm = unit(u)
         qw = (qd - qu) - qv                             # w on the q columns
-        nrm = q[0:4, 4 * LPU:5 * LPU]
         cx, cy, cz = crow[0, u], crow[1, u], crow[2, u]
-        s_neg = (ax - cx) * qd[0] + (ay - cy) * qd[1] + (az - cz) * qd[2]
-        tn = -s_neg - nrm[3]
         # Recentered moment m' = (a - c) x d = m - c x d.
         rows = (dx, dy, dz,
                 mx - (cy * dz - cz * dy),
@@ -191,6 +253,7 @@ def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
         mnx, mny, mnz = mt[0], mt[1], mt[2]
         mxx, mxy, mxz = mt[3], mt[4], mt[5]
         crow = 0.5 * (mt[0:3] + mt[3:6])
+        unit = tables(cl, crow)
         valid = mt[6] > 0.0
         insides = []
         for j in range(nsub):
@@ -233,11 +296,11 @@ def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
         ua, ub, ikey = pick2(keys(ws, torch.zeros_like(valid)))
         while ua < 128:
             hasb = ub < 128
-            process(cl, ua, crow)
+            process(unit, ua, crow)
             if hasb:
                 # (The TPU kernel recomputes unit A in a slot with no B:
                 # an idempotent fold, skipped here.)
-                process(cl, ub, crow)
+                process(unit, ub, crow)
             ws = _worst_subs(bt, s, exit_t, smask)
             removed = ikey >= IMAX
             ua, ub, ikey = pick2(torch.where(removed, IMAX,
@@ -245,13 +308,7 @@ def _trace_tile_plain(fr, ccand_row, centry_row, cnt, meta, unit_qn,
             nv += 1 + int(hasb)
             ne += 1 + int(hasb)
         ci += 1
-
-    # Epilogue: normalise the selected normal, shade against -d.
-    nn = torch.clamp_min(
-        torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2]), 1e-20)
-    rgb = shading.shade_rows(bn[0] / nn, bn[1] / nn, bn[2] / nn,
-                             -dx, -dy, -dz, bt < BIG, cfg)
-    return torch.stack(rgb, dim=-1), nv, ne
+    return bt, bn, nv, ne
 
 
 def _sub_masks(nsub: int, nrows: int, device) -> list[torch.Tensor]:
@@ -268,21 +325,12 @@ def _sub_masks(nsub: int, nrows: int, device) -> list[torch.Tensor]:
             for j in range(nsub)]
 
 
-def trace_fused_plain(ccand, ccount, centry, frus, meta, unit_qn,
-                      cfg: RenderConfig, *, tiles_per_frame: int, tx: int,
-                      pw: int, ph: int):
-    """Plain-PyTorch version of the fused trace kernel (same inputs and
-    outputs as trace_fused). Runs on any device; on the card it is only
-    the kernel's yardstick."""
+def _plain_walks(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
+                 carry, compressed_=False, corners=None, rows=None):
+    """Walk every non-empty tile row of frus (or of `rows`), yielding
+    (row, rays, carry after the walk); carry(row) gives the start."""
     dev = frus.device
-    n_rows = frus.shape[0]
-    n_frames = n_rows // tiles_per_frame
     nsub = cfg.sub_frusta
-    image = torch.empty((n_frames, ph, pw, 3), dtype=torch.float32,
-                        device=dev)
-    visits = torch.zeros(n_rows, dtype=torch.int32)
-    eligible = torch.zeros(n_rows, dtype=torch.int32)
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
     counts = ccount.cpu()
     ccand_h = ccand.cpu()
     centry_h = centry.cpu()
@@ -291,25 +339,85 @@ def trace_fused_plain(ccand, ccount, centry, frus, meta, unit_qn,
     idx = torch.arange(TILE, device=dev)
     col_f = (idx % culling.TILE_W).to(torch.float32)
     row_f = (idx // culling.TILE_W).to(torch.float32)
-    th, tw = culling.TILE_H, culling.TILE_W
-    for n in range(n_rows):
-        f, t = divmod(n, tiles_per_frame)
-        y0, x0 = (t // tx) * th, (t % tx) * tw
+    for n in range(frus.shape[0]) if rows is None else rows:
         cnt = min(int(counts[n]), ccand.shape[1])
         if cnt <= 0:
-            image[f, y0:y0 + th, x0:x0 + tw] = bg
             continue
-        rgb, nv, ne = _trace_tile_plain(
-            frus[n], ccand_h[n], centry_h[n], cnt, meta, unit_qn, cfg,
-            nsub, smask, lane, col_f, row_f)
-        image[f, y0:y0 + th, x0:x0 + tw] = rgb.reshape(th, tw, 3)
+        if raymat is None:
+            rays = _raygen(frus[n], nsub, cfg, col_f, row_f)
+        else:
+            rays = tuple(raymat[n, r] for r in range(7))
+        tabs = functools.partial(_cluster_tables, tables, compressed_,
+                                 corners, apex=frus[n, 0:3])
+        yield n, rays, _trace_tile_plain(
+            frus[n], rays, raymat is None, ccand_h[n], centry_h[n], cnt,
+            meta, tabs, cfg, nsub, smask, lane, carry(n))
+
+
+def trace_fused_plain(ccand, ccount, centry, frus, meta, tables,
+                      cfg: RenderConfig, *, tiles_per_frame: int, tx: int,
+                      pw: int, ph: int, raymat=None, compressed=False,
+                      corners=None):
+    """Plain-PyTorch version of the fused trace kernel (same inputs and
+    outputs as trace_fused). Runs on any device; on the card it is only
+    the kernel's yardstick."""
+    dev = frus.device
+    n_rows = frus.shape[0]
+    n_frames = n_rows // tiles_per_frame
+    th, tw = culling.TILE_H, culling.TILE_W
+    bg = torch.tensor(cfg.background, dtype=torch.float32, device=dev)
+    image = bg.expand(n_frames, ph, pw, 3).clone()
+    visits = torch.zeros(n_rows, dtype=torch.int32)
+    eligible = torch.zeros(n_rows, dtype=torch.int32)
+    zero = torch.zeros(TILE, dtype=torch.float32, device=dev)
+
+    def fresh(_):
+        return torch.full_like(zero, BIG), [zero, zero, zero], 0, 0
+
+    for n, rays, (bt, bn, nv, ne) in _plain_walks(
+            ccand, ccount, centry, frus, raymat, meta, tables, cfg, fresh,
+            compressed, corners):
+        # Epilogue: normalise the selected normal, shade against -d.
+        nn = torch.clamp_min(
+            torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2]), 1e-20)
+        rgb = shading.shade_rows(bn[0] / nn, bn[1] / nn, bn[2] / nn,
+                                 -rays[0], -rays[1], -rays[2], bt < BIG, cfg)
+        f, t = divmod(n, tiles_per_frame)
+        y0, x0 = (t // tx) * th, (t % tx) * tw
+        image[f, y0:y0 + th, x0:x0 + tw] = torch.stack(
+            rgb, dim=-1).reshape(th, tw, 3)
         visits[n] = nv
         eligible[n] = ne
     return image, visits.to(dev), eligible.to(dev)
 
 
+def trace_windowed_plain(ccand, ccount, centry, frus, raymat, carry, meta,
+                         tables, cfg: RenderConfig, *, compressed=False,
+                         corners=None, rows=None):
+    """Plain-PyTorch version of the windowed trace kernel (same inputs and
+    outputs as trace_windowed). rows: trace only these tile rows (the
+    others pass their carries through, as empty tiles do)."""
+    t_in, n_in, vis_in, elig_in = carry
+    t_out, n_out = t_in.clone(), n_in.clone()
+    vis_out, elig_out = vis_in.cpu().clone(), elig_in.cpu().clone()
+
+    def start(n):
+        return (t_in[n], [n_in[n, 0], n_in[n, 1], n_in[n, 2]],
+                int(vis_out[n]), int(elig_out[n]))
+
+    for n, _, (bt, bn, nv, ne) in _plain_walks(
+            ccand, ccount, centry, frus, raymat, meta, tables, cfg, start,
+            compressed, corners, rows):
+        t_out[n] = bt
+        n_out[n] = torch.stack(bn)
+        vis_out[n] = nv
+        elig_out[n] = ne
+    dev = frus.device
+    return t_out, n_out, vis_out.to(dev), elig_out.to(dev)
+
+
 # ----------------------------------------------------------------------
-# Kernel wrapper.
+# Kernel wrappers.
 
 def _check(name, x, dtype, shape):
     if x.dtype != dtype:
@@ -322,49 +430,38 @@ def _check(name, x, dtype, shape):
 
 
 def _bind(lib):
-    fn = lib.rtmm_tile_trace_fused
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp,          # inputs
-                   vp, vp, vp,                      # outputs
-                   ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                   ctypes.POINTER(ctypes.c_float), ci,
-                   vp]                              # stream
-    fn.restype = ci
+    fp = ctypes.POINTER(ctypes.c_float)
+    fused = lib.rtmm_tile_trace_fused
+    fused.argtypes = ([vp] * 9 + [ci]                 # inputs, grid rows
+                      + [vp] * 3                      # outputs
+                      + [ci] * 9 + [fp, ci, vp])      # sizes, params, stream
+    fused.restype = ci
+    windowed = lib.rtmm_tile_trace_windowed
+    windowed.argtypes = ([vp] * 9 + [ci]              # inputs, grid rows
+                         + [vp] * 8                   # carries in, out
+                         + [ci] * 5 + [fp, ci, vp])
+    windowed.restype = ci
     err = lib.rtmm_cuda_error_string
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
-    return fn, err
+    return fused, windowed, err
 
 
-def trace_fused(ccand, ccount, centry, frus, meta, unit_qn,
-                cfg: RenderConfig, *, tiles_per_frame: int, tx: int,
-                pw: int, ph: int):
-    """Fused trace + shade of every tile row of frus.
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
-    ccand (N, kc) int32, ccount (N,) int32, centry (N, kc) f32: per-tile
-    front-to-back cluster lists; frus (N, pack) f32 per-tile scalar pack
-    (tiled.frustum_scalars with raygen); meta (C, 8, 128) f32 and unit_qn
-    (U, 8, 4*LPU + 128) f32: the scene tables. Rows are frame-major, with
-    tiles_per_frame rows per frame, tx tiles across.
 
-    Returns (image (F, ph, pw, 3) f32, visits (N,) int32, eligible (N,)
-    int32). On CUDA tensors the CUDA kernel runs (csrc/tile_trace.cu); on
-    CPU tensors the plain version.
-    """
-    global LAUNCHES
+def _check_common(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
+                  compressed_, corners):
+    """Device, type and shape checks shared by both wrappers; returns
+    (device, kc, grid rows or 0)."""
     dev = frus.device
     for name, x in (("ccand", ccand), ("ccount", ccount),
-                    ("centry", centry), ("meta", meta),
-                    ("unit_qn", unit_qn)):
-        if x.device != dev:
+                    ("centry", centry), ("raymat", raymat), ("meta", meta),
+                    ("tables", tables), ("corners", corners)):
+        if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, frus on {dev}")
-    if dev.type == "cpu":
-        return trace_fused_plain(ccand, ccount, centry, frus, meta,
-                                 unit_qn, cfg,
-                                 tiles_per_frame=tiles_per_frame, tx=tx,
-                                 pw=pw, ph=ph)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_fused runs on cuda or cpu, not {dev}")
     n_rows, kc = ccand.shape
     pack = frus.shape[1]
     nsub, nrows = cfg.sub_frusta, cfg.sub_rows
@@ -372,23 +469,81 @@ def trace_fused(ccand, ccount, centry, frus, meta, unit_qn,
             and culling.TILE_H % nrows == 0
             and culling.TILE_W % (nsub // nrows) == 0):
         raise ValueError(f"unsupported sub-cone grid {nsub}/{nrows}")
-    if pack != tiled.frustum_pack_len(nsub, with_raygen=True):
+    if pack != tiled.frustum_pack_len(nsub, with_raygen=raymat is None):
         raise ValueError(f"frus pack length {pack} does not match "
-                         f"sub_frusta={nsub} with raygen")
-    if (n_rows % tiles_per_frame or pw != tx * culling.TILE_W
-            or tiles_per_frame != tx * (ph // culling.TILE_H)):
-        raise ValueError("tile grid does not match the row count")
+                         f"sub_frusta={nsub} "
+                         f"{'with' if raymat is None else 'without'} raygen")
     n_cl = meta.shape[0]
     _check("ccand", ccand, torch.int32, (n_rows, kc))
     _check("ccount", ccount, torch.int32, (n_rows,))
     _check("centry", centry, torch.float32, (n_rows, kc))
     _check("frus", frus, torch.float32, (n_rows, pack))
+    if raymat is not None:
+        _check("raymat", raymat, torch.float32, (n_rows, 8, TILE))
     _check("meta", meta, torch.float32, (n_cl, 8, 128))
-    _check("unit_qn", unit_qn, torch.float32, (n_cl * UPC, 8, 4 * LPU + 128))
-    params = shade_params(cfg)
+    if not compressed_:
+        _check("unit_qn", tables, torch.float32,
+               (n_cl * UPC, 8, 4 * LPU + 128))
+        return dev, kc, 0
+    grows = tables.shape[1] if tables.dim() == 3 else -1
+    if corners is None:
+        _check("unit_grid", tables, torch.float32,
+               (n_cl * UPC, compressed.IDX_ROWS, compressed.GRID_LANES))
+    else:
+        if grows not in (compressed.GRID_ROWS, compressed.IDX_ROWS):
+            raise ValueError(f"unit_grid has {grows} rows")
+        _check("unit_grid", tables, torch.float32,
+               (n_cl * UPC, grows, compressed.GRID_LANES))
+        _check("corners", corners, torch.int32, (3, LPU))
+    return dev, kc, tables.shape[1]
 
+
+def _lib():
     from . import _build
-    fn, err_str = _bind(_build.load("tile_trace"))
+    return _bind(_build.load("tile_trace"))
+
+
+def _raise_on(rc, err_str):
+    if rc != 0:
+        raise RuntimeError("tile_trace kernel launch failed: "
+                           + err_str(rc).decode())
+
+
+def trace_fused(ccand, ccount, centry, frus, meta, tables,
+                cfg: RenderConfig, *, tiles_per_frame: int, tx: int,
+                pw: int, ph: int, raymat=None, compressed=False,
+                corners=None):
+    """Fused trace + shade of every tile row of frus.
+
+    ccand (N, kc) int32, ccount (N,) int32, centry (N, kc) f32: per-tile
+    front-to-back cluster lists; frus (N, pack) f32 per-tile scalar pack
+    (tiled.frustum_scalars, with the raygen scalars unless raymat is
+    given); raymat (N, 8, TILE) f32 ray rows [d, a x d, s, 1], or None for
+    in-kernel raygen; meta (C, 8, 128) f32. tables: unit_qn (U, 8, 4*LPU +
+    128) f32, or with compressed=True the records unit_grid (U, rows, 128)
+    f32 and corners the (3, LPU) int32 shared corner lanes (None: each
+    record's index rows 3-5). Rows are frame-major, with tiles_per_frame
+    rows per frame, tx tiles across.
+
+    Returns (image (F, ph, pw, 3) f32, visits (N,) int32, eligible (N,)
+    int32). On CUDA tensors the CUDA kernel runs (csrc/tile_trace.cu); on
+    CPU tensors the plain version.
+    """
+    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
+                                  tables, cfg, compressed, corners)
+    n_rows, kc = ccand.shape
+    if (n_rows % tiles_per_frame or pw != tx * culling.TILE_W
+            or tiles_per_frame != tx * (ph // culling.TILE_H)):
+        raise ValueError("tile grid does not match the row count")
+    if dev.type == "cpu":
+        return trace_fused_plain(
+            ccand, ccount, centry, frus, meta, tables, cfg,
+            tiles_per_frame=tiles_per_frame, tx=tx, pw=pw, ph=ph,
+            raymat=raymat, compressed=compressed, corners=corners)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_fused runs on cuda or cpu, not {dev}")
+    params = shade_params(cfg)
+    fn, _, err_str = _lib()
     n_frames = n_rows // tiles_per_frame
     image = torch.empty((n_frames, ph, pw, 3), dtype=torch.float32,
                         device=dev)
@@ -398,50 +553,97 @@ def trace_fused(ccand, ccount, centry, frus, meta, unit_qn,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
-                frus.data_ptr(), meta.data_ptr(), unit_qn.data_ptr(),
-                image.data_ptr(), visits.data_ptr(), eligible.data_ptr(),
-                n_rows, kc, pack, tiles_per_frame, tx, pw, ph, nsub, nrows,
+                frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
+                None if compressed else tables.data_ptr(),
+                tables.data_ptr() if compressed else None, _ptr(corners),
+                grows, image.data_ptr(), visits.data_ptr(),
+                eligible.data_ptr(), n_rows, kc, frus.shape[1],
+                tiles_per_frame, tx, pw, ph, cfg.sub_frusta, cfg.sub_rows,
                 hp, len(params), stream)
-    if rc != 0:
-        raise RuntimeError("tile_trace kernel launch failed: "
-                           + err_str(rc).decode())
-    LAUNCHES += 1
+    _raise_on(rc, err_str)
+    LAUNCHES["tile_trace_fused_compressed" if compressed
+             else "tile_trace_fused"] += 1
     return image, visits, eligible
+
+
+def trace_windowed(ccand, ccount, centry, frus, raymat, carry, meta, tables,
+                   cfg: RenderConfig, *, compressed=False, corners=None):
+    """One cluster window of every tile row of frus (no shading).
+
+    Inputs as trace_fused, with frus packed without raygen scalars and
+    raymat required. carry = (t (N, TILE) f32 best apex-relative t, BIG =
+    miss; n (N, 3, TILE) f32 summed winner normals, unnormalised, as the
+    TPU kernel's normal rows carry them; visits (N,) int32; eligible (N,)
+    int32), from the previous window (BIG / 0 for the first). Returns the
+    updated carry; tiles with no cluster in this window pass theirs
+    through. On CUDA tensors the CUDA kernel runs; on CPU tensors the
+    plain version.
+    """
+    if raymat is None:
+        raise ValueError("the windowed mode takes its rays from raymat")
+    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
+                                  tables, cfg, compressed, corners)
+    n_rows, kc = ccand.shape
+    t_in, n_in, vis_in, elig_in = carry
+    _check("t_in", t_in, torch.float32, (n_rows, TILE))
+    _check("n_in", n_in, torch.float32, (n_rows, 3, TILE))
+    _check("vis_in", vis_in, torch.int32, (n_rows,))
+    _check("elig_in", elig_in, torch.int32, (n_rows,))
+    for name, x in (("t_in", t_in), ("n_in", n_in), ("vis_in", vis_in),
+                    ("elig_in", elig_in)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, frus on {dev}")
+    if dev.type == "cpu":
+        return trace_windowed_plain(ccand, ccount, centry, frus, raymat,
+                                    carry, meta, tables, cfg,
+                                    compressed=compressed, corners=corners)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_windowed runs on cuda or cpu, not {dev}")
+    params = shade_params(cfg)
+    _, fn, err_str = _lib()
+    t_out = torch.empty_like(t_in)
+    n_out = torch.empty_like(n_in)
+    vis_out = torch.empty_like(vis_in)
+    elig_out = torch.empty_like(elig_in)
+    hp = (ctypes.c_float * len(params))(*params.tolist())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
+                frus.data_ptr(), raymat.data_ptr(), meta.data_ptr(),
+                None if compressed else tables.data_ptr(),
+                tables.data_ptr() if compressed else None, _ptr(corners),
+                grows, t_in.data_ptr(), n_in.data_ptr(), vis_in.data_ptr(),
+                elig_in.data_ptr(), t_out.data_ptr(), n_out.data_ptr(),
+                vis_out.data_ptr(), elig_out.data_ptr(), n_rows, kc,
+                frus.shape[1], cfg.sub_frusta, cfg.sub_rows, hp,
+                len(params), stream)
+    _raise_on(rc, err_str)
+    LAUNCHES["tile_trace_windowed_compressed" if compressed
+             else "tile_trace_windowed"] += 1
+    return t_out, n_out, vis_out, elig_out
 
 
 # ----------------------------------------------------------------------
 # Frame entry points (render_pallas / render_pallas_frames).
 
+def clusters_per_window(scene: DeviceScene, cfg: RenderConfig) -> int:
+    """kc: the per-tile cluster-list capacity of one launch. A scene with
+    more clusters is traced in windows of kc clusters."""
+    return max(1, min(cfg.kernel_clusters_per_window, scene.num_clusters))
+
+
 def cluster_lists(scene: DeviceScene, fi: tiled.FrameInputs, kc: int):
-    """Per-tile front-to-back cluster lists, exactly jax.lax.top_k's:
-    ascending apex distance, ties to the lower cluster index, centry =
-    +inf past ccount. Returns (ccand (tiles, kc) int32, ccount (tiles,)
-    int32, centry (tiles, kc) f32)."""
-    cl_dist = culling.aabb_distance(fi.apex, scene.cluster_aabb_min,
-                                    scene.cluster_aabb_max)
-    key = torch.where(fi.cluster_hit, cl_dist[None, :], float("inf"))
-    skey, sidx = torch.sort(key, dim=1, stable=True)
-    skey, sidx = skey[:, :kc], sidx[:, :kc]
-    sel = skey < float("inf")
-    return (sidx.to(torch.int32).contiguous(),
-            sel.sum(dim=1).to(torch.int32),
-            torch.where(sel, skey, float("inf")).contiguous())
-
-
-def _window(scene: DeviceScene, cfg: RenderConfig) -> int:
-    if not cfg.kernel_raygen:
-        raise NotImplementedError(
-            "kernel_raygen=False (ray-matrix input) belongs to the windowed "
-            "kernel mode (K1b): later slice")
-    kc = max(1, min(cfg.kernel_clusters_per_window, scene.num_clusters))
-    if scene.num_clusters > kc:
-        raise NotImplementedError(_K1B)
-    return kc
+    """Per-tile front-to-back cluster lists of every cluster the tile's
+    frustum hits, exactly jax.lax.top_k's: ascending apex distance, ties
+    to the lower cluster index, centry = +inf past ccount. Returns (ccand
+    (tiles, kc) int32, ccount (tiles,) int32, centry (tiles, kc) f32)."""
+    return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc)[:3]
 
 
 def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
                  kc: int):
-    """One frame's launch inputs: (ccand, ccount, centry, frus)."""
+    """One frame's launch inputs for in-kernel raygen: (ccand, ccount,
+    centry, frus)."""
     pw, _ = tiled.padded_size(cfg.width, cfg.height)
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
                           device=scene.device)
@@ -451,13 +653,71 @@ def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     return (*cluster_lists(scene, fi, kc), frus)
 
 
-def _launch(scene, cfg, rows):
+def ray_frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig):
+    """One frame's inputs with a ray matrix: (fi, frus without raygen
+    scalars, raymat (tiles, 8, TILE) rows [d, a x d, s, 1])."""
+    ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
+                          device=scene.device)
+    fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True)
+    return (fi, tiled.frustum_scalars(fi),
+            fi.raymat.transpose(1, 2).contiguous())
+
+
+def _launch(scene, cfg, rows, raymat=None):
     pw, ph = tiled.padded_size(cfg.width, cfg.height)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
     ccand, ccount, centry, frus = rows
-    return trace_fused(ccand, ccount, centry, frus,
-                       scene.cluster_unit_meta, scene.unit_qn, cfg,
-                       tiles_per_frame=tx * ty, tx=tx, pw=pw, ph=ph)
+    meta, tables, opts = scene_tables(scene)
+    return trace_fused(ccand, ccount, centry, frus, meta, tables, cfg,
+                       tiles_per_frame=tx * ty, tx=tx, pw=pw, ph=ph,
+                       raymat=raymat, **opts)
+
+
+def _to_image(colors, cfg):
+    """(tiles, TILE, 3) tile-major colors -> (H, W, 3)."""
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
+    return (colors.reshape(ty, tx, culling.TILE_H, culling.TILE_W, 3)
+            .permute(0, 2, 1, 3, 4).reshape(ph, pw, 3))[:cfg.height,
+                                                        :cfg.width]
+
+
+def render_windowed(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
+                    kc: int):
+    """One frame in cluster windows of kc clusters (render_pallas's
+    windowed branch): the ray matrix, carries t = BIG and normals 0, one
+    windowed launch per window (tiled.trace_windowed_clusters), then the
+    normalised normal shaded against -d in the row form of the fused
+    kernel's epilogue. Returns (image (H, W, 3),
+    visits (tiles,), eligible (tiles,), number of windows)."""
+    fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
+    meta, tables, opts = scene_tables(scene)
+    n_tiles = frus.shape[0]
+    dev = frus.device
+
+    def trace_window(ccand, ccount, centry, best_t, rest):
+        t, n, vis, elig = trace_windowed(ccand, ccount, centry, frus, raymat,
+                                         (best_t, *rest), meta, tables, cfg,
+                                         **opts)
+        return t, (n, vis, elig)
+
+    init_t = torch.full((n_tiles, TILE), BIG, dtype=torch.float32,
+                        device=dev)
+    init_n = (torch.zeros((n_tiles, 3, TILE), dtype=torch.float32,
+                          device=dev),
+              torch.zeros(n_tiles, dtype=torch.int32, device=dev),
+              torch.zeros(n_tiles, dtype=torch.int32, device=dev))
+    best_t, (n, visits, eligible), windows = tiled.trace_windowed_clusters(
+        scene, fi, trace_window, init_t, init_n, kc)
+    # The fused kernel's epilogue (shade_rows, the row form of
+    # shade_or_miss): normalise the summed winner normal, shade against -d.
+    nn = torch.clamp_min(torch.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]
+                                    + n[:, 2] * n[:, 2]), 1e-20)
+    d = raymat[:, 0:3]
+    rgb = shading.shade_rows(n[:, 0] / nn, n[:, 1] / nn, n[:, 2] / nn,
+                             -d[:, 0], -d[:, 1], -d[:, 2], best_t < BIG, cfg)
+    return (_to_image(torch.stack(rgb, dim=-1), cfg), visits, eligible,
+            windows)
 
 
 def render_frame(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
@@ -465,30 +725,49 @@ def render_frame(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     """Render one frame on the scene's device. Returns (H, W, 3) f32, or
     ((H, W, 3), stats) with stats["kernel_unit_visits"] and
     stats["kernel_unit_eligible"] the per-tile (ty, tx) int32 counts of
-    unit visits and walk picks."""
-    kc = _window(scene, cfg)
-    image, visits, eligible = _launch(
-        scene, cfg, frame_inputs(scene, inv_view_proj, cfg, kc))
-    img = image[0, :cfg.height, :cfg.width]
+    unit visits and walk picks, and stats["windows"] the launches.
+
+    Fused (one launch, shaded in-kernel) when the scene has at most
+    kernel_clusters_per_window clusters, with in-kernel raygen unless
+    cfg.kernel_raygen is False (then from a ray matrix); windowed
+    otherwise."""
+    kc = clusters_per_window(scene, cfg)
+    if scene.num_clusters > kc:
+        img, visits, eligible, windows = render_windowed(
+            scene, inv_view_proj, cfg, kc)
+    else:
+        if cfg.kernel_raygen:
+            image, visits, eligible = _launch(
+                scene, cfg, frame_inputs(scene, inv_view_proj, cfg, kc))
+        else:
+            fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
+            image, visits, eligible = _launch(
+                scene, cfg, (*cluster_lists(scene, fi, kc), frus), raymat)
+        img, windows = image[0, :cfg.height, :cfg.width], 1
     if not with_stats:
         return img
     pw, ph = tiled.padded_size(cfg.width, cfg.height)
     shape = (ph // culling.TILE_H, pw // culling.TILE_W)
     return img, {"kernel_unit_visits": visits.reshape(shape),
-                 "kernel_unit_eligible": eligible.reshape(shape)}
+                 "kernel_unit_eligible": eligible.reshape(shape),
+                 "windows": windows}
 
 
 def render_frames(scene: DeviceScene, inv_view_projs,
                   cfg: RenderConfig) -> torch.Tensor:
-    """Render a batch of frames, F = len(inv_view_projs), in as few
-    launches as BATCH_TILE_CAP allows (equal chunks). Every kernel input
-    is per tile, so frames batch by concatenating their tile rows.
-    Returns (F, H, W, 3) f32."""
-    kc = _window(scene, cfg)
+    """Render a batch of frames, F = len(inv_view_projs). Fused frames
+    with in-kernel raygen batch into as few launches as BATCH_TILE_CAP
+    allows (equal chunks): every kernel input is per tile, so frames batch
+    by concatenating their tile rows. Windowed scenes (and ray-matrix
+    input) render frame by frame. Returns (F, H, W, 3) f32."""
+    kc = clusters_per_window(scene, cfg)
     if not isinstance(inv_view_projs, torch.Tensor):
         inv_view_projs = torch.from_numpy(np.asarray(inv_view_projs))
     ivps = inv_view_projs.to(device=scene.device, dtype=torch.float32)
     f_total = ivps.shape[0]
+    if scene.num_clusters > kc or not cfg.kernel_raygen:
+        return torch.stack([render_frame(scene, ivps[i], cfg)
+                            for i in range(f_total)])
     pw, ph = tiled.padded_size(cfg.width, cfg.height)
     n_tiles = (pw // culling.TILE_W) * (ph // culling.TILE_H)
     f = max(1, min(f_total, BATCH_TILE_CAP // n_tiles))

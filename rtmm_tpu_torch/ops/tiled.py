@@ -11,12 +11,17 @@ per-pixel near-plane origins recovered as t_near = t_apex - s,
 s = dot(origin - apex, d), every (tile, unit) step is a small contraction
 of the unit's table with the tile's ray rows [d, m].
 
+Scenes with more clusters than one launch's per-tile list holds are
+traced in cluster windows (cluster_window, trace_windowed_clusters): each
+window takes the next kc nearest clusters of every tile, and the kernel
+carries the running best hit from window to window.
+
 (The JAX package's XLA tile backend — candidate windows, trace_candidate,
 render_tiled — lives in the same module there; it is not ported yet.)
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -127,7 +132,9 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
         dirs = to_tiles(dirs)
         origins = to_tiles(origins)
         m = culling._cross(apex.expand_as(dirs), dirs)
-        s = ((origins - apex) * dirs).sum(-1)
+        oa = origins - apex
+        s = (oa[..., 0] * dirs[..., 0] + oa[..., 1] * dirs[..., 1]
+             + oa[..., 2] * dirs[..., 2])
         raymat = torch.cat(
             [dirs, m, s[..., None], torch.ones_like(s)[..., None]], dim=-1)
     return FrameInputs(raymat, dirs, apex, normals, cluster_hit,
@@ -168,3 +175,92 @@ def frustum_scalars(fi: FrameInputs, raygen_ivp=None,
     parts.append(torch.zeros((n_tiles, pack - used), dtype=torch.float32,
                              device=dev))
     return torch.cat(parts, dim=1).contiguous()
+
+
+def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
+                             kc: int):
+    """Per-tile kc nearest remaining clusters + the cleared remaining set.
+
+    Selection is by (distance, cluster index) order, as jax.lax.top_k
+    gives it (ties to the lower index): a stable ascending sort of the
+    distances. "Clear the selected clusters" is a per-tile threshold
+    compare against the last selected (distance, index) pair, O(tiles x
+    C), not a (tiles, kc, C) membership tensor.
+
+    Returns (cidx (tiles, kc) int32, sel (tiles, kc) bool, ascending
+    distance skey (tiles, kc) f32 (+inf where not sel), new_remaining
+    (tiles, C) bool, next_bound (tiles,) f32).
+    """
+    n_cl = remaining.shape[1]
+    kc = min(kc, n_cl)
+    idx = torch.arange(n_cl, device=cl_dist.device)
+    keyed = torch.where(remaining, cl_dist[None, :], float("inf"))
+    skey, sidx = torch.sort(keyed, dim=1, stable=True)
+    skey, sidx = skey[:, :kc], sidx[:, :kc]
+    sel = skey < float("inf")
+    # Strictly after the kc-th selected pair in (dist, idx) order; when
+    # fewer than kc survived, everything remaining was selected, so the
+    # threshold is +inf (nothing stays).
+    kth_d = torch.where(sel[:, -1], skey[:, -1], float("inf"))[:, None]
+    kth_i = torch.where(sel[:, -1], sidx[:, -1], n_cl)[:, None]
+    d = cl_dist[None, :]
+    new_remaining = remaining & ((d > kth_d)
+                                 | ((d == kth_d) & (idx[None, :] > kth_i)))
+    next_bound = torch.where(new_remaining, d, float("inf")).amin(dim=1)
+    return (sidx.to(torch.int32), sel, skey, new_remaining, next_bound)
+
+
+def cluster_window(scene: DeviceScene, apex: torch.Tensor,
+                   remaining: torch.Tensor, kc: int):
+    """Cluster-level window: the kc nearest remaining clusters per tile,
+    front-to-back, for the kernel's in-kernel unit walk.
+
+    Returns (ccand (tiles, kc) int32, ccount (tiles,) int32, centry
+    (tiles, kc) f32 ascending with +inf tail, new_remaining, next_bound
+    (tiles,))."""
+    cl_dist = culling.aabb_distance(apex, scene.cluster_aabb_min,
+                                    scene.cluster_aabb_max)          # (C,)
+    cidx, sel, skey, new_remaining, next_bound = _select_nearest_clusters(
+        cl_dist, remaining, kc)
+    return (cidx.contiguous(), sel.sum(dim=1).to(torch.int32),
+            skey.contiguous(), new_remaining, next_bound)
+
+
+def trace_windowed_clusters(scene: DeviceScene, fi: FrameInputs,
+                            trace_window: Callable, init_t: torch.Tensor,
+                            init_n, kc: int):
+    """Cluster-granular window loop: trace_window receives (ccand,
+    ccount, centry, best_t, best_n) and returns the updated (best_t,
+    best_n); best_t is (tiles, TILE) apex-relative t (BIG = miss), best_n
+    whatever the window carries besides.
+
+    A tile stays active while it has unprocessed clusters and some ray
+    could still improve: its worst reach (hit t + s, or the ray's exit t
+    through the inflated scene box while it misses) is at least the
+    nearest remaining cluster's entry distance. The loop runs on the host,
+    one sync per window. Returns (best_t, best_n, number of windows)."""
+    s_apex = fi.raymat[..., 6]
+    # Per-ray scene-exit reach (the bound the kernel applies in its
+    # worst_subs): miss rays stop holding their tile's worst at +inf.
+    d = fi.raymat[..., 0:3]
+    tiny = 1e-12
+    ds = torch.where(torch.abs(d) < tiny,
+                     torch.where(d >= 0.0, tiny, -tiny), d)
+    t0 = torch.div(fi.scene_aabb[0:3] - fi.apex, ds)
+    t1 = torch.div(fi.scene_aabb[3:6] - fi.apex, ds)
+    exit_t = torch.maximum(t0, t1).amin(dim=-1)          # (tiles, TILE)
+
+    active = fi.cluster_hit.any(dim=1)
+    remaining = fi.cluster_hit & active[:, None]
+    best_t, best_n = init_t, init_n
+    windows = 0
+    while bool(active.any()):
+        ccand, ccount, centry, remaining, bound = cluster_window(
+            scene, fi.apex, remaining, kc)
+        best_t, best_n = trace_window(ccand, ccount, centry, best_t, best_n)
+        windows += 1
+        worst = torch.where(best_t < BIG, best_t + s_apex,
+                            exit_t).amax(dim=1)
+        active = remaining.any(dim=1) & (worst >= bound)
+        remaining = remaining & active[:, None]
+    return best_t, best_n, windows

@@ -33,6 +33,18 @@ def test_cli_renders_png(tmp_path):
     assert len(np.unique(img.reshape(-1, 3), axis=0)) > 1   # not just bg
 
 
+def test_cli_renders_compressed_png(tmp_path, capsys):
+    out = tmp_path / "frames"
+    rc = app.main(["proc:plane?level=2,grid=4", "--compressed", "--width",
+                   "64", "--height", "64", "--device", "cpu", "--out",
+                   str(out)])
+    assert rc == 0
+    assert "mode=compressed" in capsys.readouterr().out
+    img = image_io.read_png(str(out / "frame_0000.png"))
+    assert img.shape == (64, 64, 3)
+    assert len(np.unique(img.reshape(-1, 3), axis=0)) > 1   # not just bg
+
+
 def test_missing_asset_exits_1(tmp_path, capsys):
     rc = app.main([str(tmp_path / "nope.gltf"), "--device", "cpu"])
     assert rc == 1
@@ -41,7 +53,7 @@ def test_missing_asset_exits_1(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--instances", "3"], ["--tlas"], ["--pathtrace", "2"], ["--spp", "4"],
-    ["--compressed"], ["--cache"], ["--dump-bary"], ["--stats"],
+    ["--compressed", "--instances", "2"], ["--cache"], ["--dump-bary"], ["--stats"],
     ["--pipeline", "ray"], ["--pipeline", "tile"],
 ])
 def test_later_slice_flags_exit_nonzero(flags, capsys):

@@ -1,4 +1,6 @@
-"""The trace kernel against its plain PyTorch version, on the card.
+"""The trace kernel against its plain PyTorch version, on the card, in
+every mode: fused (precomputed and compressed tables, in-kernel raygen or
+a ray matrix) and windowed (precomputed and compressed).
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 where there is none (the CPU runs only the plain version). On a machine
@@ -48,15 +50,15 @@ def test_kernel_matches_plain(cuda, sub, level, w, h):
     scene = _scene(sub, level, cuda)
     cfg = RenderConfig(width=w, height=h)
     rows = tile_trace.frame_inputs(scene, _ivp(w, h), cfg,
-                                   tile_trace._window(scene, cfg))
+                                   tile_trace.clusters_per_window(scene, cfg))
     pw, ph = tiled.padded_size(w, h)
     geo = dict(tiles_per_frame=(pw // 32) * (ph // 32), tx=pw // 32,
                pw=pw, ph=ph)
     args = (*rows, scene.cluster_unit_meta, scene.unit_qn, cfg)
-    before = tile_trace.LAUNCHES
+    before = tile_trace.LAUNCHES["tile_trace_fused"]
     k_img, k_vis, k_elig = tile_trace.trace_fused(*args, **geo)
     torch.cuda.synchronize()
-    assert tile_trace.LAUNCHES == before + 1
+    assert tile_trace.LAUNCHES["tile_trace_fused"] == before + 1
     p_img, p_vis, p_elig = tile_trace.trace_fused_plain(*args, **geo)
     assert torch.equal(k_vis, p_vis)
     assert torch.equal(k_elig, p_elig)
@@ -83,7 +85,7 @@ def test_wrapper_rejects_bad_input(cuda):
     scene = _scene(0, 2, cuda)
     cfg = RenderConfig(width=128, height=64)
     ccand, ccount, centry, frus = tile_trace.frame_inputs(
-        scene, _ivp(128, 64), cfg, tile_trace._window(scene, cfg))
+        scene, _ivp(128, 64), cfg, tile_trace.clusters_per_window(scene, cfg))
     geo = dict(tiles_per_frame=8, tx=4, pw=128, ph=64)
     with pytest.raises(TypeError):
         tile_trace.trace_fused(ccand.long(), ccount, centry, frus,
@@ -94,3 +96,97 @@ def test_wrapper_rejects_bad_input(cuda):
                                scene.cluster_unit_meta, scene.unit_qn, cfg,
                                **geo)
     assert culling.TILE_H * culling.TILE_W == 1024
+
+
+# Compressed scenes: (mesh maker, width, height): indexed records with a
+# shared gather matrix (level 2), plain records (level 3) and per-unit
+# index rows (mixed levels).
+COMPRESSED = {
+    "level2_plane": (lambda: procedural.make_plane(
+        grid=(8, 8), level=2, amplitude=0.05), 128, 64),
+    "level3_plane": (lambda: procedural.make_plane(
+        grid=(4, 4), level=3, amplitude=0.05), 128, 64),
+    "mixed_levels": (lambda: procedural.make_icosphere(
+        subdivisions=1, level=3, amplitude=0.12, mixed_levels=True), 128, 64),
+}
+
+
+def _check_image(k_img, p_img, w, h):
+    gate = image_gate(k_img[:h, :w], p_img[:h, :w])
+    print(f"kernel vs plain: {gate}")
+    assert gate["ok"], gate
+    assert gate["maxdiff"] <= 1e-5, gate
+
+
+@pytest.mark.parametrize("name", sorted(COMPRESSED))
+def test_compressed_kernel_matches_plain(cuda, name):
+    make, w, h = COMPRESSED[name]
+    scene = scene_mod.build_device_scene(make(), compressed=True,
+                                         device=cuda)
+    cfg = RenderConfig(width=w, height=h)
+    rows = tile_trace.frame_inputs(scene, _ivp(w, h), cfg,
+                                   tile_trace.clusters_per_window(scene, cfg))
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    pw, ph = tiled.padded_size(w, h)
+    geo = dict(tiles_per_frame=(pw // 32) * (ph // 32), tx=pw // 32,
+               pw=pw, ph=ph)
+    before = tile_trace.LAUNCHES["tile_trace_fused_compressed"]
+    k_img, k_vis, k_elig = tile_trace.trace_fused(*rows, meta, tables, cfg,
+                                                  **opts, **geo)
+    torch.cuda.synchronize()
+    assert tile_trace.LAUNCHES["tile_trace_fused_compressed"] == before + 1
+    p_img, p_vis, p_elig = tile_trace.trace_fused_plain(
+        *rows, meta, tables, cfg, **opts, **geo)
+    assert torch.equal(k_vis, p_vis) and torch.equal(k_elig, p_elig)
+    assert int(k_vis.sum()) > 0
+    _check_image(k_img[0], p_img[0], w, h)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_windowed_kernel_matches_plain(cuda, compressed):
+    """One window's launch at equal carries, then a whole windowed frame
+    against the fused frame of the same scene."""
+    mesh = procedural.make_icosphere(subdivisions=2, level=3, amplitude=0.1)
+    scene = scene_mod.build_device_scene(mesh, compressed=compressed,
+                                         device=cuda)
+    w, h = 128, 64
+    cfg = RenderConfig(width=w, height=h, kernel_clusters_per_window=2)
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, _ivp(w, h), cfg)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    ccand, ccount, centry, _, _ = tiled.cluster_window(
+        scene, fi.apex, fi.cluster_hit, 2)
+    n = frus.shape[0]
+    carry = (torch.full((n, 1024), tile_trace.BIG, device=cuda),
+             torch.zeros((n, 3, 1024), device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda))
+    name = "tile_trace_windowed" + ("_compressed" if compressed else "")
+    before = tile_trace.LAUNCHES[name]
+    k = tile_trace.trace_windowed(ccand, ccount, centry, frus, raymat,
+                                  carry, meta, tables, cfg, **opts)
+    torch.cuda.synchronize()
+    assert tile_trace.LAUNCHES[name] == before + 1
+    p = tile_trace.trace_windowed_plain(ccand, ccount, centry, frus, raymat,
+                                        carry, meta, tables, cfg, **opts)
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    assert int(k[2].sum()) > 0
+    assert float((k[0] - p[0]).abs().max()) <= 1e-5
+    assert float((k[1] - p[1]).abs().max()) <= 1e-5
+    img, st = tile_trace.render_frame(scene, _ivp(w, h), cfg,
+                                      with_stats=True)
+    fused, st1 = tile_trace.render_frame(
+        scene, _ivp(w, h), RenderConfig(width=w, height=h), with_stats=True)
+    assert st["windows"] > 1 and st1["windows"] == 1
+    _check_image(img, fused, w, h)
+
+
+def test_ray_matrix_input_kernel(cuda):
+    scene = _scene(1, 3, cuda)
+    cfg = RenderConfig(width=256, height=64, kernel_raygen=False)
+    img, st = tile_trace.render_frame(scene, _ivp(256, 64), cfg,
+                                      with_stats=True)
+    ref, st0 = tile_trace.render_frame(
+        scene, _ivp(256, 64), RenderConfig(width=256, height=64),
+        with_stats=True)
+    assert torch.equal(st["kernel_unit_visits"], st0["kernel_unit_visits"])
+    _check_image(img, ref, 256, 64)

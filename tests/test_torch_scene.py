@@ -79,14 +79,18 @@ def test_scene_from_saved_npz(tmp_path):
 
 
 def test_compressed_is_a_later_slice(tmp_path):
+    """The port builds compressed scenes and loads the JAX package's saved
+    ones, bit for bit (tests/test_torch_compressed.py holds the rest)."""
     mesh = procedural.make_icosphere(subdivisions=0, level=3)
-    with pytest.raises(NotImplementedError, match="K1c"):
-        scene_mod.build_device_scene(mesh, compressed=True, device="cpu")
+    own = scene_mod.build_device_scene(mesh, compressed=True, device="cpu")
     path = str(tmp_path / "c.npz")
-    jcache.save_scene(jscene.build_device_scene(
-        jproc.make_icosphere(subdivisions=0, level=3), compressed=True), path)
-    with np.load(path) as z, pytest.raises(NotImplementedError, match="K1c"):
-        scene_mod.scene_from_arrays(z, device="cpu")
+    ref = jscene.build_device_scene(
+        jproc.make_icosphere(subdivisions=0, level=3), compressed=True)
+    jcache.save_scene(ref, path)
+    with np.load(path) as z:
+        loaded = scene_mod.scene_from_arrays(z, device="cpu")
+    _assert_bit_equal(ref, own)
+    _assert_bit_equal(ref, loaded)
 
 
 def test_gltf_bary_round_trip_matches(tmp_path):

@@ -60,23 +60,25 @@ def _arrays(ds):
     return out
 
 
+def _render_reference(sub, level, w, h, kc=256):
+    """(port scene, JAX image, JAX visits, JAX eligible)."""
+    ds = jscene.build_device_scene(
+        jproc.make_icosphere(subdivisions=sub, level=level, amplitude=0.1),
+        hierarchy=False)
+    cfg = dataclasses.replace(JaxConfig(width=w, height=h),
+                              mt_precision="highest",
+                              kernel_clusters_per_window=kc)
+    img, st = render_pallas(ds, jnp.asarray(_ivp(w, h)), cfg,
+                            interpret=True, with_stats=True)
+    return (scene_mod.scene_from_arrays(_arrays(ds), device="cpu"),
+            np.array(img), np.asarray(st["kernel_unit_visits"]),
+            np.asarray(st["kernel_unit_eligible"]))
+
+
 @pytest.fixture(scope="module")
 def reference():
     """name -> (port scene, JAX image, JAX visits, JAX eligible)."""
-    out = {}
-    for name, (sub, level, w, h) in SCENES.items():
-        ds = jscene.build_device_scene(
-            jproc.make_icosphere(subdivisions=sub, level=level,
-                                 amplitude=0.1), hierarchy=False)
-        cfg = dataclasses.replace(JaxConfig(width=w, height=h),
-                                  mt_precision="highest")
-        img, st = render_pallas(ds, jnp.asarray(_ivp(w, h)), cfg,
-                                interpret=True, with_stats=True)
-        out[name] = (scene_mod.scene_from_arrays(_arrays(ds), device="cpu"),
-                     np.array(img),
-                     np.asarray(st["kernel_unit_visits"]),
-                     np.asarray(st["kernel_unit_eligible"]))
-    return out
+    return {name: _render_reference(*args) for name, args in SCENES.items()}
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -152,7 +154,42 @@ def test_renderer_u8_and_pipeline(reference):
 
 
 def test_windowed_scenes_are_a_later_slice(reference):
+    """A scene over the window capacity renders in windows whose walk
+    equals the single fused launch's, visit for visit."""
+    scene = reference["icosphere1_level3"][0]
+    fused, st1 = tile_trace.render_frame(
+        scene, _ivp(64, 64), RenderConfig(width=64, height=64),
+        with_stats=True)
+    img, st = tile_trace.render_frame(
+        scene, _ivp(64, 64),
+        RenderConfig(width=64, height=64, kernel_clusters_per_window=1),
+        with_stats=True)
+    assert st1["windows"] == 1 and st["windows"] == 2
+    assert torch.equal(st["kernel_unit_visits"], st1["kernel_unit_visits"])
+    gate = image_gate(img, fused)
+    assert gate["ok"] and gate["maxdiff"] <= 1e-5, gate
+
+
+def test_render_frames_windowed_equals_single_frames(reference):
     scene = reference["icosphere1_level3"][0]
     cfg = RenderConfig(width=64, height=64, kernel_clusters_per_window=1)
-    with pytest.raises(NotImplementedError, match="K1b"):
-        tile_trace.render_frame(scene, _ivp(64, 64), cfg)
+    ivps = np.stack([_ivp(64, 64, yaw=y) for y in (10.0, 40.0)])
+    batch = tile_trace.render_frames(scene, ivps, cfg)
+    for k in range(2):
+        assert torch.equal(batch[k], tile_trace.render_frame(scene, ivps[k],
+                                                             cfg))
+
+
+def test_ray_matrix_input_matches_raygen(reference):
+    """kernel_raygen=False: the fused launch reads a ray matrix
+    (build_frame_inputs' rays) instead of generating the rays."""
+    scene = reference["icosphere1_level3"][0]
+    cfg = RenderConfig(width=256, height=64)
+    a, sa = tile_trace.render_frame(scene, _ivp(256, 64), cfg,
+                                    with_stats=True)
+    b, sb = tile_trace.render_frame(
+        scene, _ivp(256, 64), dataclasses.replace(cfg, kernel_raygen=False),
+        with_stats=True)
+    assert torch.equal(sa["kernel_unit_visits"], sb["kernel_unit_visits"])
+    gate = image_gate(a, b)
+    assert gate["ok"] and gate["maxdiff"] <= 1e-5, gate
