@@ -27,7 +27,23 @@ Phases (any failure raises and exits non-zero):
      against phase 3's fused frame, and (b) config 7's construction
      (level-3 plane, compressed) cut from a 707x707 to a 160x160 grid
      (800 clusters) and from 256 to 16 clusters per window, both counted,
-     kernel vs plain on the first window's launch, timing and bound.
+     kernel vs plain on the first window's launch, timing and bound;
+  8. bench config 4 (6 baked instances of an 80-triangle level-3
+     icosphere, K1a): baked on the card, visits within 5% of the pin, the
+     frame within the gate of the same ring through render_instanced;
+  9. bench config 8 (64 instances, two-level, K1d), this slice's main
+     path, counted: frames through InstancedRenderer and an 8-frame orbit,
+     one raw launch per merged frame; the launch's inputs built once, the
+     raw kernel against its plain version; the merged frame against the
+     serial scan at 480x288; times of the launch, the frame and its stages;
+ 10. config 8 over a compressed base (K1d + K1c), kernel vs plain on a row
+     subset, the frame against the precomputed one;
+ 11. forced overflow: config 8's ring at 480x288 with a pool of one row
+     per instance; the truncated instances re-run through K1b;
+ 12. bench config 10 (256 instances): frame time and covered fraction
+     beside config 8's, kernel vs plain on a row subset;
+ 13. the raw mode with a ray-matrix input on config 3: bit for bit one
+     windowed launch with fresh carries, and against its plain version.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
@@ -87,6 +103,18 @@ ORBIT_9 = 8
 # Kernel-vs-plain rows of the windowed compressed launch: at least this
 # many non-empty tiles, the TOP_TILES with the most visits among them.
 CHECK_TILES, TOP_TILES = 64, 16
+# Bench configs 4, 8 and 10 (bench.py:134-147, :163-198): rings of one
+# 80-base-triangle subdiv-1 level-3 icosphere. Config 4's visit pin
+# (bench.py:265) and camera distance; the two-level configs' camera
+# distance, verify frame (bench.py:510) and orbit length here.
+EXPECTED_VISITS_4 = 13338
+DIST_4, DIST_8 = 4.5, 6.5
+VERIFY_W, VERIFY_H = 480, 288
+ORBIT_8 = 8
+# Unit visits the plain version may walk in one comparison (it takes 1.5-3.4
+# ms per visit on the card, so this stays under a minute): above it the
+# comparison takes CHECK_TILES rows.
+PLAIN_VISITS = 25000
 
 
 def _log(msg: str) -> None:
@@ -101,11 +129,11 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _camera(tb_yaw: float, cfg):
+def _camera(tb_yaw: float, cfg, dist: float = 3.0):
     from rtmm_tpu_torch.utils import camera
     tb = camera.Trackball()
     tb.set_camera([0.0, 0.0, 0.0],
-                  [np.radians(-30.0), np.radians(tb_yaw), 0.0], 3.0)
+                  [np.radians(-30.0), np.radians(tb_yaw), 0.0], dist)
     return camera.inv_view_proj(tb, cfg.width, cfg.height)
 
 
@@ -149,6 +177,33 @@ def _bound(card: str, name: str, visits: int, nbytes: int,
          f"3.35 TB/s = {bytes_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.4f} "
          f"ms ({by})")
     return max(ops_ms, bytes_ms), by
+
+
+def _check_rows(ccount, vis) -> list[int]:
+    """Rows of a kernel-vs-plain comparison on a subset: the TOP_TILES
+    non-empty rows with the most visits, then evenly spaced others up to
+    CHECK_TILES."""
+    nonempty = (ccount > 0).nonzero()[:, 0]
+    order = torch.argsort(vis[nonempty], descending=True, stable=True)
+    top = nonempty[order[:TOP_TILES]]
+    rest = nonempty[order[TOP_TILES:]]
+    step = max(1, len(rest) // max(1, CHECK_TILES - TOP_TILES))
+    return sorted(set(top.tolist())
+                  | set(rest[::step][:CHECK_TILES - TOP_TILES].tolist()))
+
+
+def _expect_launches(what: str, expected: dict) -> dict:
+    """The launch counts since the last reset; exactly the kernels of
+    `expected` must have launched, each as often as given (None: at least
+    once)."""
+    from rtmm_tpu_torch.ops import tile_trace
+    got = {k: n for k, n in tile_trace.LAUNCHES.items() if n}
+    wrong = set(got) != set(expected) or any(
+        n is not None and got[k] != n for k, n in expected.items())
+    _log(f"[{what}] launches {got}")
+    if wrong:
+        raise RuntimeError(f"{what}: launches {got}, expected {expected}")
+    return got
 
 
 def _entry(name: str, mode: str, launches: int, err: float, ms: float,
@@ -445,15 +500,8 @@ def phase_windowed7(card, ivp, cfg, counted):
     args, opts = launches_w[0]
     k = tile_trace.trace_windowed(*args, **opts)
     torch.cuda.synchronize()
-    # Check rows: the TOP_TILES non-empty tiles with the most visits, then
-    # evenly spaced others up to CHECK_TILES.
     nonempty = (args[1] > 0).nonzero()[:, 0]
-    order = torch.argsort(k[2][nonempty], descending=True, stable=True)
-    top = nonempty[order[:TOP_TILES]]
-    rest = nonempty[order[TOP_TILES:]]
-    step = max(1, len(rest) // max(1, CHECK_TILES - TOP_TILES))
-    rows = sorted(set(top.tolist()) | set(rest[::step][:CHECK_TILES
-                                                        - TOP_TILES].tolist()))
+    rows = _check_rows(args[1], k[2])
     p, plain_ms = _timed(lambda: tile_trace.trace_windowed_plain(
         *args, **opts, rows=rows))
     _compare_counts("config 7 cut", k[2], p[2], k[3], p[3], rows)
@@ -497,6 +545,370 @@ def phase_windowed7(card, ivp, cfg, counted):
     return entry
 
 
+def _ring4():
+    """Config 4's ring (bench.py:139-144)."""
+    from rtmm_tpu_torch.render.instances import Instance
+    return [Instance.from_euler(
+        [2.4 * np.cos(a), 2.4 * np.sin(a), 0.0], (0.0, a, 0.3 * i), 0.8)
+        for i, a in enumerate(2.0 * np.pi * np.arange(6) / 6)]
+
+
+def _ring(n_inst: int):
+    """Config 8's (64, scale 0.35) and config 10's (256, scale 0.18) ring
+    (bench.py:175-187)."""
+    from rtmm_tpu_torch.render.instances import Instance
+    rng = np.random.default_rng(9)
+    ring = []
+    for i in range(n_inst):
+        a = 2.0 * np.pi * i / n_inst
+        rad = 2.4 + 0.9 * ((i * 7) % 3)
+        ring.append(Instance.from_euler(
+            [rad * np.cos(a), rad * np.sin(a),
+             0.8 * float(rng.standard_normal())], (0.0, a, 0.2 * i),
+            0.35 if n_inst == 64 else 0.18))
+    return ring
+
+
+def _covered(img, cfg) -> float:
+    """Fraction of pixels that differ from the miss colour."""
+    bg = torch.tensor(cfg.background, device=img.device)
+    return float(((img - bg).abs() > 1e-6).any(-1).float().mean())
+
+
+def phase_config4(card, base, cfg):
+    """Config 4: 6 baked instances through the fused kernel (K1a)."""
+    from rtmm_tpu_torch.ops import culling, tiled, tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    ring = _ring4()
+    ivp = _camera(25.0, cfg, DIST_4)
+    baked, bake_ms = _timed(lambda: inst_mod.bake_instances(base, ring))
+    _log(f"[config 4] 6 instances baked on the card in {bake_ms:.1f} ms: "
+         f"{baked.num_triangles} triangle slots, U = {baked.num_units} "
+         f"units, C = {baked.num_clusters} clusters; "
+         f"{baked.device_bytes() / 2**20:.2f} MiB baked against "
+         f"{base.device_bytes() / 2**20:.2f} MiB shared + 6 x 13 floats")
+    tile_trace.reset_launches()
+    img, stats = tile_trace.render_frame(baked, ivp, cfg, with_stats=True)
+    torch.cuda.synchronize()
+    _expect_launches("config 4 baked", {"tile_trace_fused": 1})
+    nvis = int(stats["kernel_unit_visits"].sum())
+    _log(f"[config 4] visits {nvis}, pin {EXPECTED_VISITS_4} (bench.py:265)")
+    if abs(nvis - EXPECTED_VISITS_4) > VISITS_RTOL * EXPECTED_VISITS_4:
+        raise RuntimeError(f"config 4 visits {nvis} outside 5% of the pin")
+    tile_trace.reset_launches()
+    two_level = inst_mod.render_instanced(base, ring, ivp, cfg)
+    torch.cuda.synchronize()
+    _expect_launches("config 4 two-level", {"tile_trace_raw": 1})
+    gate = image_gate(img, two_level)
+    _log(f"[config 4] baked vs two-level: {gate}; covered "
+         f"{_covered(img, cfg):.4f}")
+    if not gate["ok"] or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"config 4 frame fails the gate: {gate}")
+
+    def frame_once():
+        tile_trace.render_frame(baked, ivp, cfg)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=5)
+    kc = tile_trace.clusters_per_window(baked, cfg)
+    rows = tile_trace.frame_inputs(baked, ivp, cfg, kc)
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
+    geo = dict(tiles_per_frame=tx * ty, tx=tx, pw=pw, ph=ph)
+
+    def kernel_once():
+        tile_trace.trace_fused(*rows, baked.cluster_unit_meta, baked.unit_qn,
+                               cfg, **geo)
+
+    kernel_once()
+    kernel_ms = _events_ms(kernel_once, reps=10)
+    _log(f"[config 4 time] {card}: fused kernel {kernel_ms:.4f} ms per frame "
+         f"launch ({kernel_ms / nvis * 1e3:.3f} us per visit); whole frame "
+         f"with its prologue {frame_ms:.4f} ms "
+         f"({cfg.width * cfg.height / (frame_ms * 1e-3) / 1e6:.1f} Mrays/s)")
+
+
+def _merged_check(card, name, scene, ring, ivp, cfg, img_main):
+    """Build one merged frame's launch inputs, hold the raw kernel against
+    its plain version on them, and time the launch. Returns (error, kernel
+    ms, plain ms, bound, the stages' ms, rows compared)."""
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+
+    dev = scene.device
+    rot, trn, scl = inst_mod.instance_tensors(ring, dev)
+    world = inst_mod.world_frame(ivp, cfg, dev)
+    launch = inst_mod.merged_launch_inputs(scene, rot, trn, scl, ivp, world,
+                                           cfg)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    args = (launch.ccand, launch.ccount, launch.centry, launch.frus, meta,
+            tables, cfg)
+    footprint = int(launch.n_seen.sum())
+    n_rows = launch.frus.shape[0]
+    n_over = int(launch.overflow.sum())
+    _log(f"[{name}] summed footprint S = {footprint} (instance, tile) pairs "
+         f"(max per instance {int(launch.n_seen.max())}); pool {n_rows} rows, "
+         f"{int(launch.row_valid.sum())} valid; overflow set: {n_over} "
+         f"instances")
+    if n_over or int(launch.row_valid.sum()) != footprint:
+        raise RuntimeError(f"{name}: the default pool overflowed")
+    k_out, k_vis, k_elig = tile_trace.trace_raw(*args, raymat=launch.raymat,
+                                                **opts)
+    torch.cuda.synchronize()
+    nvis = int(k_vis.sum())
+    rows = None if nvis <= PLAIN_VISITS else _check_rows(launch.ccount, k_vis)
+    (p_out, p_vis, p_elig), plain_ms = _timed(
+        lambda: tile_trace.trace_raw_plain(*args, raymat=launch.raymat,
+                                           **opts, rows=rows))
+    _compare_counts(name, k_vis, p_vis, k_elig, p_elig, rows)
+    sel = slice(None) if rows is None else rows
+    err_t = float((k_out[sel, 0] - p_out[sel, 0]).abs().max())
+    err_n = float((k_out[sel, 1:] - p_out[sel, 1:]).abs().max())
+    nonempty = int((launch.ccount > 0).sum())
+    _log(f"[{name} check] raw kernel vs plain on "
+         f"{nonempty if rows is None else len(rows)} of {nonempty} non-empty "
+         f"rows: visits {int(k_vis[sel].sum())} of {nvis} and eligible "
+         f"{int(k_elig[sel].sum())} equal per row; max |diff| t {err_t:.3e}, "
+         f"normals {err_n:.3e}")
+    if max(err_t, err_n) > MAX_ABS_ERR:
+        raise RuntimeError(f"{name}: raw kernel disagrees with its plain "
+                           "version")
+    # The main path's frame is these rows combined and shaded.
+    best = inst_mod.combine_rows(k_out, launch, rot, scl,
+                                 world.dirs.shape[0])
+    again = inst_mod.shade_frame(*best, world, cfg)
+    redo = float((again - img_main).abs().max())
+    _log(f"[{name} check] main-path frame vs these rows combined and "
+         f"shaded: max |diff| {redo:.3e}")
+    if redo > MAX_ABS_ERR:
+        raise RuntimeError(f"{name}: main-path frame differs")
+
+    def kernel_once():
+        tile_trace.trace_raw(*args, raymat=launch.raymat, **opts)
+
+    kernel_once()
+    kernel_ms = _events_ms(kernel_once, reps=10)
+
+    def cull_once():
+        inst_mod.instance_cull(scene, rot, trn, scl, world)
+
+    def prologue_once():
+        w = inst_mod.world_frame(ivp, cfg, dev)
+        inst_mod.merged_launch_inputs(scene, rot, trn, scl, ivp, w, cfg)
+
+    def combine_once():
+        inst_mod.shade_frame(*inst_mod.combine_rows(
+            k_out, launch, rot, scl, world.dirs.shape[0]), world, cfg)
+
+    stages = {}
+    for stage, fn in (("per-instance cull", cull_once),
+                      ("prologue (world frame, cull, rows, packs, lists)",
+                       prologue_once),
+                      ("combine + shade", combine_once)):
+        fn()
+        stages[stage] = _events_ms(fn, reps=5)
+    _log(f"[{name} time] {card}: raw launch {kernel_ms:.4f} ms "
+         f"({kernel_ms / max(nvis, 1) * 1e3:.3f} us per visit, "
+         f"{kernel_ms / n_rows * 1e3:.3f} us per row); stages, each timed "
+         "alone: " + "; ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+         + f"; plain version {plain_ms:.1f} ms")
+    bound = _bound(card, name, nvis,
+                   _nbytes(*args[:4], launch.raymat, meta, tables,
+                           opts.get("corners")) + _nbytes(k_out, k_vis,
+                                                          k_elig),
+                   bool(opts))
+    return (max(err_t, err_n), kernel_ms, plain_ms, bound, stages,
+            nonempty if rows is None else len(rows))
+
+
+def _verify_instanced(name, scene, ring):
+    """The instanced image gate of bench.py:495-540: one 480x288 frame
+    through the merged launch against the serial per-instance scan.
+    Returns the merged frame and its config."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    cfgv = RenderConfig(width=VERIFY_W, height=VERIFY_H)
+    ivpv = _camera(25.0, cfgv, DIST_8)
+    merged = inst_mod.render_instanced(scene, ring, ivpv, cfgv)
+    tile_trace.reset_launches()
+    serial, serial_ms = _timed(lambda: inst_mod.render_instanced(
+        scene, ring, ivpv, cfgv, serial=True))
+    got = {k: n for k, n in tile_trace.LAUNCHES.items() if n}
+    gate = image_gate(merged, serial)
+    _log(f"[{name} verify] merged vs serial scan at {VERIFY_W}x{VERIFY_H}: "
+         f"{gate}; covered_frac {_covered(merged, cfgv):.4f}; the serial "
+         f"scan took {serial_ms:.1f} ms on the host's clock, launches {got}")
+    if not gate["ok"]:
+        raise RuntimeError(f"{name}: merged frame fails the gate: {gate}")
+    return merged, cfgv, ivpv
+
+
+def phase_instanced(card, base, cfg, n_inst: int):
+    """Configs 8 and 10: the merged two-level frame (K1d)."""
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+
+    name = f"config {8 if n_inst == 64 else 10}"
+    ring = _ring(n_inst)
+    renderer = inst_mod.InstancedRenderer(base, ring, cfg)
+    ivp = _camera(25.0, cfg, DIST_8)
+    ivps = [_camera(25.0 + 360.0 / ORBIT_8 * k, cfg, DIST_8)
+            for k in range(ORBIT_8)]
+
+    tile_trace.reset_launches()
+    img = renderer.render(ivp)
+    u8 = renderer.render_u8(ivp)
+    orbit = [renderer.render(m) for m in ivps]
+    torch.cuda.synchronize()
+    launches = _expect_launches(
+        f"{name} main path", {"tile_trace_raw": 2 + ORBIT_8})["tile_trace_raw"]
+    quant = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    if not (all(bool(torch.isfinite(f).all()) for f in [img, *orbit])
+            and tuple(img.shape) == (HEIGHT, WIDTH, 3)
+            and u8.shape == (HEIGHT, WIDTH, 3) and u8.dtype == np.uint8
+            and np.array_equal(u8, quant.cpu().numpy())
+            and torch.equal(orbit[0], img)):
+        raise RuntimeError(f"{name}: frames malformed")
+    covered = _covered(img, cfg)
+    _log(f"[{name} main path] {n_inst} instances, one raw launch per merged "
+         f"frame ({launches} frames); frames finite, shapes ok; covered "
+         f"fraction at 1080p {covered:.4f}")
+    if covered < 0.01:
+        raise RuntimeError(f"{name}: frame empty")
+
+    err, kernel_ms, plain_ms, bound, stages, plain_rows = _merged_check(
+        card, name, base, ring, ivp, cfg, img)
+    verify = _verify_instanced(name, base, ring)
+
+    def frame_once():
+        renderer.render(ivp)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=5)
+
+    def orbit_once():
+        for m in ivps:
+            renderer.render(m)
+
+    orbit_once()
+    orbit_ms = _events_ms(orbit_once, reps=1, rounds=3) / ORBIT_8
+    cull = stages["per-instance cull"]
+    _log(f"[{name} time] {card}: whole merged frame {frame_ms:.4f} ms "
+         f"({WIDTH * HEIGHT / (frame_ms * 1e-3) / 1e6:.1f} Mrays/s), of "
+         f"which the raw launch {kernel_ms:.4f} ms and the O(N x tiles) "
+         f"cull {cull:.4f} ms ({cull / frame_ms:.3f} of the frame); orbit of "
+         f"{ORBIT_8} frames {orbit_ms:.4f} ms/frame "
+         f"({WIDTH * HEIGHT / (orbit_ms * 1e-3) / 1e6:.1f} Mrays/s)")
+    entry = _entry("tile_trace_raw", "raw + xform", launches, err, kernel_ms,
+                   plain_ms, bound)
+    entry.update(plain_rows=plain_rows, frame_ms=frame_ms,
+                 orbit_ms_per_frame=orbit_ms, covered_frac_1080p=covered,
+                 instances=n_inst)
+    return entry, img, verify
+
+
+def phase_instanced_compressed(card, mesh, cfg, img8):
+    """Config 8 over a compressed base (K1d with the in-kernel derive)."""
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    base_c = scene_mod.build_device_scene(mesh, compressed=True,
+                                          device="cuda")
+    ring = _ring(64)
+    ivp = _camera(25.0, cfg, DIST_8)
+    tile_trace.reset_launches()
+    img = inst_mod.render_instanced(base_c, ring, ivp, cfg)
+    torch.cuda.synchronize()
+    launches = _expect_launches(
+        "config 8 compressed main path",
+        {"tile_trace_raw_compressed": 1})["tile_trace_raw_compressed"]
+    gate = image_gate(img, img8)
+    _log(f"[config 8 compressed] base {base_c.device_bytes() / 2**20:.2f} "
+         f"MiB on the card; frame vs the precomputed base's: {gate}")
+    if not gate["ok"] or not bool(torch.isfinite(img).all()):
+        raise RuntimeError(f"config 8 compressed fails the gate: {gate}")
+    err, kernel_ms, plain_ms, bound, _, plain_rows = _merged_check(
+        card, "config 8 compressed", base_c, ring, ivp, cfg, img)
+    entry = _entry("tile_trace_raw_compressed",
+                   "raw + xform, compressed grid_su", launches, err,
+                   kernel_ms, plain_ms, bound)
+    entry["plain_rows"] = plain_rows
+    return entry
+
+
+def phase_overflow(base, verify):
+    """Forced overflow: config 8's ring at the verify size with a pool of
+    one row per instance; the backstop re-runs the truncated instances
+    through the windowed kernel. verify: config 8's default-pool frame
+    at that size (_verify_instanced)."""
+    import dataclasses
+
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    ring = _ring(64)
+    default, cfgv, ivpv = verify
+    cfg1 = dataclasses.replace(cfgv, instance_tile_cap=1)
+    world = inst_mod.world_frame(ivpv, cfg1, base.device)
+    launch = inst_mod.merged_launch_inputs(
+        base, *inst_mod.instance_tensors(ring, base.device), ivpv, world,
+        cfg1)
+    n_over = int(launch.overflow.sum())
+    tile_trace.reset_launches()
+    capped, ms = _timed(lambda: inst_mod.render_instanced(base, ring, ivpv,
+                                                          cfg1))
+    got = _expect_launches("forced overflow", {"tile_trace_raw": 1,
+                                               "tile_trace_windowed": None})
+    gate = image_gate(capped, default)
+    _log(f"[forced overflow] pool {launch.frus.shape[0]} rows for S = "
+         f"{int(launch.n_seen.sum())}: {n_over} of 64 instances overflow and "
+         f"re-run through {got['tile_trace_windowed']} windowed launches; "
+         f"frame vs the default pool's: {gate}; {ms:.1f} ms on the host's "
+         "clock")
+    if not gate["ok"] or n_over == 0 or got["tile_trace_windowed"] < n_over:
+        raise RuntimeError(f"forced overflow fails: {gate}")
+
+
+def phase_raw_raymat(card, scene, ivp, cfg):
+    """The raw mode's other ray source, a ray matrix, on config 3: bit for
+    bit one windowed launch from fresh carries, and its plain version."""
+    from rtmm_tpu_torch.ops import tile_trace
+
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, ivp, cfg)
+    lists = tile_trace.cluster_lists(scene, fi, kc)
+    meta, tables = scene.cluster_unit_meta, scene.unit_qn
+    out, vis, elig = tile_trace.trace_raw(*lists, frus, meta, tables, cfg,
+                                          raymat=raymat)
+    t, n, vis_w, elig_w = tile_trace.trace_windowed(
+        *lists, frus, raymat, _window_carry(frus.shape[0], frus.device),
+        meta, tables, cfg)
+    torch.cuda.synchronize()
+    same = (torch.equal(out[:, 0], t) and torch.equal(out[:, 1:], n)
+            and torch.equal(vis, vis_w) and torch.equal(elig, elig_w))
+    rows = _check_rows(lists[1], vis)
+    (p_out, p_vis, p_elig), plain_ms = _timed(
+        lambda: tile_trace.trace_raw_plain(*lists, frus, meta, tables, cfg,
+                                           raymat=raymat, rows=rows))
+    _compare_counts("raw, ray matrix", vis, p_vis, elig, p_elig, rows)
+    err = float((out[rows] - p_out[rows]).abs().max())
+    _log(f"[raw, ray matrix, config 3] kc = {kc}, visits {int(vis.sum())}: "
+         f"t, normals and counters equal one fresh-carry windowed launch bit "
+         f"for bit: {same}; against the plain version on {len(rows)} rows "
+         f"({int(vis[rows].sum())} visits, {plain_ms:.1f} ms): counts equal, "
+         f"max |diff| {err:.3e}")
+    if not same or err > MAX_ABS_ERR:
+        raise RuntimeError("raw with a ray matrix disagrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -512,11 +924,7 @@ def main() -> int:
     def counted(kernel: str) -> int:
         """Launches of `kernel` since the last reset; every other kernel
         must not have launched."""
-        others = {k: n for k, n in tile_trace.LAUNCHES.items()
-                  if k != kernel and n}
-        if others:
-            raise RuntimeError(f"unexpected launches {others}")
-        return tile_trace.LAUNCHES[kernel]
+        return _expect_launches(kernel, {kernel: None})[kernel]
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -684,6 +1092,24 @@ def main() -> int:
     kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
                                    stats["kernel_unit_visits"]))
     kernels.append(phase_windowed7(card, ivp, cfg, counted))
+    # -- 8-13. instancing (K1a baked; K1d merged; K1b backstop) ---------------
+    t0 = time.perf_counter()
+    mesh1 = procedural.make_icosphere(subdivisions=1, level=3, amplitude=0.12)
+    base = scene_mod.build_device_scene(mesh1, device="cuda")
+    _log(f"[instancing base] {mesh1.num_triangles} base triangles, level "
+         f"{mesh1.max_level}: U = {base.num_units} units, C = "
+         f"{base.num_clusters} clusters, {base.device_bytes() / 2**20:.2f} "
+         f"MiB on the card; build {time.perf_counter() - t0:.1f} s")
+    phase_config4(card, base, cfg)
+    entry8, img8, verify8 = phase_instanced(card, base, cfg, 64)
+    kernels.append(entry8)
+    kernels.append(phase_instanced_compressed(card, mesh1, cfg, img8))
+    phase_overflow(base, verify8)
+    entry10, _, _ = phase_instanced(card, base, cfg, 256)
+    entry8["config10"] = {k: entry10[k] for k in (
+        "ms", "plain_ms", "plain_rows", "bound_ms", "frame_ms",
+        "orbit_ms_per_frame", "covered_frac_1080p", "max_abs_err")}
+    phase_raw_raymat(card, scene, ivp, cfg)
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

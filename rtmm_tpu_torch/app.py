@@ -26,6 +26,7 @@ import torch
 from .config import RenderConfig
 from .io import image as image_io
 from .models import procedural, scene as scene_mod
+from .render import instances as inst_mod
 from .render.renderer import FramePipeline, Renderer
 from .utils import camera
 
@@ -57,8 +58,6 @@ def load_asset(path: str):
 def _not_ported(args) -> str | None:
     """The message for the first flag of a later slice, or None."""
     later = [
-        (args.instances > 1, "--instances above 1 (instancing)"),
-        (args.tlas, "--tlas (two-level instancing)"),
         (args.pathtrace > 0, "--pathtrace (path tracer)"),
         (args.spp is not None, "--spp (path tracer)"),
         (args.cache, "--cache (scene cache)"),
@@ -106,11 +105,17 @@ def main(argv=None) -> int:
                         help="render both micro-mesh and tessellated modes "
                              "and report the image RMSE (the reference's "
                              "implicit correctness oracle)")
+    parser.add_argument("--instances", type=int, default=1,
+                        help="replicate the asset in a ring of N instances "
+                             "(TLAS analog demo)")
+    parser.add_argument("--tlas", action="store_true",
+                        help="with --instances: true two-level traversal "
+                             "(per-instance ray transform into the shared "
+                             "BLAS, O(scene+N) memory) instead of baking "
+                             "world-space copies")
     # Flags of later slices (kept so that they fail clearly).
     parser.add_argument("--stats", action="store_true")
     parser.add_argument("--cache", action="store_true")
-    parser.add_argument("--instances", type=int, default=1)
-    parser.add_argument("--tlas", action="store_true")
     parser.add_argument("--pathtrace", type=int, default=0,
                         metavar="BOUNCES")
     parser.add_argument("--spp", type=int, default=None)
@@ -144,6 +149,23 @@ def main(argv=None) -> int:
     print(f"scene build: {time.perf_counter() - t0:.2f}s "
           f"(mode={mode}, device={args.device})")
 
+    instance_ring = None
+    if args.instances > 1:
+        n = args.instances
+        ring = []
+        for i in range(n):
+            a = 2.0 * np.pi * i / n
+            ring.append(inst_mod.Instance.from_euler(
+                [2.2 * np.cos(a), 2.2 * np.sin(a), 0.0],
+                (0.0, a, 0.0), 0.8))
+        if args.tlas:
+            instance_ring = ring
+            print(f"instanced (two-level TLAS): {n} instances, shared BLAS")
+        else:
+            ds = inst_mod.bake_instances(ds, ring)
+            print(f"instanced: {n} instances, "
+                  f"{ds.num_triangles} triangles total")
+
     tb = camera.Trackball(distance=args.distance)
     tb.set_camera([0.0, 0.0, 0.0],
                   [np.radians(args.pitch), np.radians(args.yaw), 0.0],
@@ -163,7 +185,11 @@ def main(argv=None) -> int:
               f"({'PASS' if rmse <= 1e-3 else 'FAIL'} at 1e-3)")
         return 0 if rmse <= 1e-3 else 2
 
-    pipe = FramePipeline(Renderer(ds, cfg))
+    if instance_ring is not None:
+        renderer = inst_mod.InstancedRenderer(ds, instance_ring, cfg)
+    else:
+        renderer = Renderer(ds, cfg)
+    pipe = FramePipeline(renderer)
     os.makedirs(args.out, exist_ok=True)
     written = 0
 

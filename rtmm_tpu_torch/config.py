@@ -13,7 +13,7 @@ the primary frame. Dropped from the JAX package's RenderConfig:
   * fields of backends not ported yet: `pipeline` (the CLI's --pipeline
     flag selects instead), `max_candidates`, `ray_chunk` (per-ray
     backend), `clusters_per_window`, `tile_chunk` (XLA tile backend),
-    `instance_tile_cap` (instancing), `debug_guards` (sanitizer).
+    `debug_guards` (sanitizer).
 """
 from __future__ import annotations
 
@@ -63,6 +63,12 @@ class RenderConfig:
     # scalars of the frustum pack; False reads them from a ray matrix
     # built by the prologue (as the windowed mode always does).
     kernel_raygen: bool = True
+
+    # Two-level instancing (render/instances.py): tile rows per instance.
+    # The serial scan gathers at most this many tiles of one instance
+    # (0 = max(32, tiles // 8)); the merged launch sizes its one row pool
+    # as instance_tile_cap * N (0 = tiles + 4 * N).
+    instance_tile_cap: int = 0
 
 
 DEFAULT_CONFIG = RenderConfig()

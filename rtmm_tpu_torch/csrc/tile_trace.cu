@@ -2,22 +2,30 @@
 //
 // Replaces the TPU kernel rtmm_tpu/ops/pallas_tiled.py::trace_pallas
 // (body _kernel -> _trace_tile_nonempty, pallas_call at
-// pallas_tiled.py:1336) in three of its modes, as template parameters of
-// one kernel over one walk:
-//   K1a  fused: in-kernel raygen (or a ray-matrix input), precomputed
-//        unit tables, shaded in-kernel;
-//   K1b  windowed (Windowed): one cluster window of a longer walk; the ray
+// pallas_tiled.py:1336) in all four of its modes, as template parameters
+// <Compressed, Mode> of one kernel over one walk. The three output modes:
+//   K1a  fused (kFused): in-kernel raygen (or a ray-matrix input), shaded
+//        in-kernel;
+//   K1b  windowed (kWindowed): one cluster window of a longer walk; the ray
 //        matrix is an input, the running best hit (t, summed winner
 //        normal, visit/eligible counters) is carried in and out, no shading;
+//   K1d  raw (kRaw; raw=True, with xform=True for the instanced raygen): no
+//        carries in, every row starts at t = 1e30, one compact output row
+//        [t, nx, ny, nz] per tile row, no shading. Rays come from a ray
+//        matrix, or from the world raygen followed by the row's object
+//        transform (d_o = R^T d_w, s_o = s_w / scale, moments about the
+//        object-space apex at the pack head): one launch traces the tile
+//        rows of every instance of a two-level scene;
+// and, across all three,
 //   K1c  compressed (Compressed): each visited unit's tables are derived
 //        from its displaced grid-vertex record (_derive_unit, :309-465)
-//        instead of read from unit_qn; in fused or windowed mode.
+//        instead of read from unit_qn.
 // The plain PyTorch versions are rtmm_tpu_torch/ops/tile_trace.py::
-// trace_fused_plain and trace_windowed_plain; they do the same float32
-// operations in the same order, and this file is built with -fmad=false
-// (no a*b+c contraction) and without fast math, so they agree bit for bit
-// except where a reduction order differs (the tie-sum of winner normals
-// when several leaves hit at exactly the same t).
+// trace_fused_plain, trace_windowed_plain and trace_raw_plain; they do the
+// same float32 operations in the same order, and this file is built with
+// -fmad=false (no a*b+c contraction) and without fast math, so they agree
+// bit for bit except where a reduction order differs (the tie-sum of
+// winner normals when several leaves hit at exactly the same t).
 //
 // Design. One block per 32x32 ray tile, one thread per ray (1,024
 // threads). The block walks the tile's front-to-back cluster list: the
@@ -31,7 +39,8 @@
 // block max-reductions (warp shuffles + shared atomics on order-preserving
 // integer keys: a max is exact in any order). The tile stops when the
 // worst bound is below the next cluster's entry distance; empty tiles
-// write the background (fused) or pass the carries through (windowed).
+// write the background (fused), pass the carries through (windowed) or
+// write a miss (raw).
 // Compressed staging loads the two records' <= 45 positions into shared
 // memory and derives one (unit, leaf) per thread on 128 threads; the
 // corner gather is an indexed load (the TPU's one-hot matmul gathers the
@@ -42,9 +51,10 @@
 // four products and the compares); the unit tables or records are read
 // once per visit from L2 into shared memory and broadcast to all 1,024
 // threads, so device-memory traffic is small (chip_smoke.py prints both
-// bounds). The compressed derive adds ~100 operations per leaf per visit,
-// done by 128 threads while the other 896 wait at the barrier. This
-// first version aims to be right; it uses no tensor cores.
+// bounds). The raw mode writes 16 KB per row, its largest stream, and
+// stays bound by arithmetic. The compressed derive adds ~100 operations
+// per leaf per visit, done by 128 threads while the other 896 wait at the
+// barrier. This first version aims to be right; it uses no tensor cores.
 //
 // The TPU mechanics are left behind: bf16 hi/lo splits, one-hot matmul
 // gathers and transposes, the widened gather layout, DMA semaphores,
@@ -69,6 +79,11 @@ constexpr int kGridLanes = 128;            // compressed record row width
 constexpr float kBig = 1e30f;              // miss sentinel
 constexpr float kUvEps = 1e-3f;            // MT_UV_EPS, intersection.hlsl:413
 constexpr int kIMax = 0x7FFFFFFF;          // removed / ineligible key
+
+// Output modes of the kernel.
+constexpr int kFused = 0;     // shade in-kernel, write the image
+constexpr int kWindowed = 1;  // carries in and out
+constexpr int kRaw = 2;       // fresh start, compact [t | n] rows out
 
 // Float parameters, laid out as tile_trace.py::shade_params packs them.
 struct Params {
@@ -120,9 +135,13 @@ struct Args {
   const int* elig_in;
   float* t_out;          // windowed carries out, same layouts
   float* n_out;
+  float* raw_out;        // raw: (N, 4, kTile) rows [t, nx, ny, nz]
   int* visits;           // (N,) per-tile counters
   int* eligible;
   int kc, pack, tiles_per_frame, tx, pw, ph, nsub, nrows;
+  // Raw raygen only: the pack carries [R^T (9), inv_s, apex_w (3)] after
+  // the scene box, and the generated world rays go to object space.
+  int xform;
 };
 
 // NaN-propagating max/min (jnp.maximum / torch.maximum semantics).
@@ -447,9 +466,10 @@ __device__ void shade_rows(float nx, float ny, float nz, float vx, float vy,
   }
 }
 
-template <bool Compressed, bool Windowed>
+template <bool Compressed, int Mode>
 __global__ void __launch_bounds__(kTile, 1)
 tile_trace_kernel(const Args a, const Params P) {
+  constexpr bool Windowed = Mode == kWindowed;
   __shared__ Shared sh;
   const int row = blockIdx.x;                 // tile row, frame-major
   const int tid = threadIdx.x;
@@ -457,7 +477,7 @@ tile_trace_kernel(const Args a, const Params P) {
   const float* fr = a.frus + static_cast<size_t>(row) * a.pack;
   const size_t ray = static_cast<size_t>(row) * kTile + tid;
   float* out = nullptr;
-  if (!Windowed) {
+  if (Mode == kFused) {
     const int frame = row / a.tiles_per_frame, t = row % a.tiles_per_frame;
     const int py = (t / a.tx) * kTileH + pr, px = (t % a.tx) * kTileW + pc;
     out = a.image + ((static_cast<size_t>(frame) * a.ph + py) * a.pw + px) * 3;
@@ -474,10 +494,18 @@ tile_trace_kernel(const Args a, const Params P) {
         a.visits[row] = a.vis_in[row];
         a.eligible[row] = a.elig_in[row];
       }
-    } else {                                  // empty tile: background
-      out[0] = P.bg[0];
-      out[1] = P.bg[1];
-      out[2] = P.bg[2];
+    } else {
+      if (Mode == kRaw) {                     // empty row: a miss
+        float* ro = a.raw_out + static_cast<size_t>(row) * 4 * kTile + tid;
+        ro[0 * kTile] = kBig;
+        ro[1 * kTile] = 0.0f;
+        ro[2 * kTile] = 0.0f;
+        ro[3 * kTile] = 0.0f;
+      } else {                                // empty tile: background
+        out[0] = P.bg[0];
+        out[1] = P.bg[1];
+        out[2] = P.bg[2];
+      }
       if (tid == 0) {
         a.visits[row] = 0;
         a.eligible[row] = 0;
@@ -486,6 +514,8 @@ tile_trace_kernel(const Args a, const Params P) {
     return;
   }
 
+  // The pack head is the apex of the walk: the camera, or with an object
+  // transform the camera in the row's object space.
   const float ax = fr[0], ay = fr[1], az = fr[2];
   float dx, dy, dz, s, mx, my, mz;
   const bool raygen = a.raymat == nullptr;
@@ -511,7 +541,22 @@ tile_trace_kernel(const Args a, const Params P) {
     dx = dx / ln;
     dy = dy / ln;
     dz = dz / ln;
-    s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz;
+    if (Mode == kRaw && a.xform) {
+      // World s against the world apex, then the row's object transform
+      // (_raygen_rows with xform_off): d_o = R^T d_w, three 3-term sums
+      // left to right; s scales by 1/scale (|d_o| = 1, R a rotation).
+      const float* xf = fr + rg + 18 + 6;
+      s = (ox - xf[10]) * dx + (oy - xf[11]) * dy + (oz - xf[12]) * dz;
+      const float dxo = xf[0] * dx + xf[1] * dy + xf[2] * dz;
+      const float dyo = xf[3] * dx + xf[4] * dy + xf[5] * dz;
+      const float dzo = xf[6] * dx + xf[7] * dy + xf[8] * dz;
+      dx = dxo;
+      dy = dyo;
+      dz = dzo;
+      s = s * xf[9];
+    } else {
+      s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz;
+    }
     mx = ay * dz - az * dy;
     my = az * dx - ax * dz;
     mz = ax * dy - ay * dx;
@@ -547,7 +592,7 @@ tile_trace_kernel(const Args a, const Params P) {
   const int sub_lanes = kTileW / ncols;
   const int my_sub = (pr / (kTileH / a.nrows)) * ncols + pc / sub_lanes;
 
-  // The running best: fresh (fused), or carried from earlier windows.
+  // The running best: fresh (fused, raw), or carried from earlier windows.
   float bt = kBig, bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
   int nv = 0, ne = 0;
   if (Windowed) {
@@ -602,6 +647,14 @@ tile_trace_kernel(const Args a, const Params P) {
     a.n_out[(static_cast<size_t>(row) * 3 + 0) * kTile + tid] = bnx;
     a.n_out[(static_cast<size_t>(row) * 3 + 1) * kTile + tid] = bny;
     a.n_out[(static_cast<size_t>(row) * 3 + 2) * kTile + tid] = bnz;
+  } else if (Mode == kRaw) {
+    // Compact row: best t (object units under a transform) and the
+    // unnormalised summed winner normal.
+    float* ro = a.raw_out + static_cast<size_t>(row) * 4 * kTile + tid;
+    ro[0 * kTile] = bt;
+    ro[1 * kTile] = bnx;
+    ro[2 * kTile] = bny;
+    ro[3 * kTile] = bnz;
   } else {
     // Epilogue: normalise the selected normal, shade against -d.
     const float nn = jmax(sqrtf(bnx * bnx + bny * bny + bnz * bnz), 1e-20f);
@@ -618,22 +671,24 @@ tile_trace_kernel(const Args a, const Params P) {
   }
 }
 
-template <bool Windowed>
+template <int Mode>
 int launch(const Args& a, int n_rows, const float* host_params,
            int n_params, void* stream) {
   if (n_params != kNumParams || a.nsub < 1 || a.nsub > kMaxSub ||
       a.nrows < 1 || a.nsub % a.nrows != 0 || a.kc < 1 || n_rows < 1 ||
       (a.tab.unit_qn == nullptr) == (a.tab.grid == nullptr) ||
       (a.tab.grid != nullptr && a.tab.grows < (a.tab.corners ? 3 : 6)) ||
-      (Windowed && a.raymat == nullptr))
+      (Mode == kWindowed && a.raymat == nullptr) ||
+      // Raw rays: a ray matrix, or the raygen with the object transform.
+      (a.xform != 0) != (Mode == kRaw && a.raymat == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   std::memcpy(&p, host_params, sizeof(Params));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.tab.grid != nullptr)
-    tile_trace_kernel<true, Windowed><<<n_rows, kTile, 0, st>>>(a, p);
+    tile_trace_kernel<true, Mode><<<n_rows, kTile, 0, st>>>(a, p);
   else
-    tile_trace_kernel<false, Windowed><<<n_rows, kTile, 0, st>>>(a, p);
+    tile_trace_kernel<false, Mode><<<n_rows, kTile, 0, st>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,7 +727,7 @@ extern "C" int rtmm_tile_trace_fused(
   a.nrows = nrows;
   if (image == nullptr || tiles_per_frame < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<false>(a, n_rows, host_params, n_params, stream);
+  return launch<kFused>(a, n_rows, host_params, n_params, stream);
 }
 
 // One cluster window over n_rows tile rows (K1b, with K1c when grid is
@@ -706,7 +761,41 @@ extern "C" int rtmm_tile_trace_windowed(
   a.pack = pack;
   a.nsub = nsub;
   a.nrows = nrows;
-  return launch<true>(a, n_rows, host_params, n_params, stream);
+  return launch<kWindowed>(a, n_rows, host_params, n_params, stream);
+}
+
+// Raw trace over n_rows tile rows (K1d, with K1c when grid is set): every
+// row starts fresh and writes raw_out (N, 4, 1024) = [t, nx, ny, nz] and
+// its visit / eligible counters. raymat null = world raygen + the row's
+// object transform, frus packed [apex_o 3, sub planes 12 nsub, px0, py0,
+// ivp 16, object-space exit box 6, R^T 9, 1/scale, apex_w 3]; raymat set =
+// rows read from it, frus packed without raygen scalars. Tables and
+// params as above.
+extern "C" int rtmm_tile_trace_raw(
+    const int* ccand, const int* ccount, const float* centry,
+    const float* frus, const float* raymat, const float* meta,
+    const float* unit_qn, const float* grid, const int* corners, int grows,
+    float* raw_out, int* visits, int* eligible, int n_rows, int kc, int pack,
+    int nsub, int nrows, const float* host_params, int n_params,
+    void* stream) {
+  Args a = {};
+  a.ccand = ccand;
+  a.ccount = ccount;
+  a.centry = centry;
+  a.frus = frus;
+  a.raymat = raymat;
+  a.meta = meta;
+  a.tab = Tables{unit_qn, grid, corners, grows};
+  a.raw_out = raw_out;
+  a.visits = visits;
+  a.eligible = eligible;
+  a.kc = kc;
+  a.pack = pack;
+  a.nsub = nsub;
+  a.nrows = nrows;
+  a.xform = raymat == nullptr;
+  if (raw_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kRaw>(a, n_rows, host_params, n_params, stream);
 }
 
 extern "C" const char* rtmm_cuda_error_string(int err) {

@@ -186,14 +186,17 @@ def _ray_closest_point(o1, d1, o2, d2):
 def cull_units(apex: torch.Tensor, normals: torch.Tensor,
                aabb_min: torch.Tensor, aabb_max: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
-    """(tiles, U) bool: unit AABB intersects tile frustum (conservative)."""
+    """(tiles, U) bool: unit AABB intersects tile frustum (conservative).
+    Leading batch axes on apex (..., 3) and normals (..., tiles, 4, 3) (one
+    object-space camera per instance) give (..., tiles, U)."""
     # p-vertex per plane: the AABB corner furthest along the plane normal.
-    n = normals[:, :, None, :]                     # (tiles, 4, 1, 3)
-    pmin = (aabb_min - apex)[None, None]           # (1, 1, U, 3)
-    pmax = (aabb_max - apex)[None, None]
+    n = normals[..., None, :]                      # (tiles, 4, 1, 3)
+    a = apex[..., None, :]
+    pmin = (aabb_min - a)[..., None, None, :, :]   # (1, 1, U, 3)
+    pmax = (aabb_max - a)[..., None, None, :, :]
     pvert = torch.where(n >= 0.0, pmax, pmin)
     outside = (n * pvert).sum(-1) < 0.0            # (tiles, 4, U)
-    return (~outside.any(dim=1)) & valid[None, :]
+    return (~outside.any(dim=-2)) & valid
 
 
 def aabb_distance(apex: torch.Tensor, aabb_min: torch.Tensor,

@@ -1,6 +1,6 @@
 """Tile trace: the port of the JAX package's Pallas trace kernel
 (rtmm_tpu/ops/pallas_tiled.py::trace_pallas; body _kernel ->
-_trace_tile_nonempty) in its fused, windowed and compressed modes.
+_trace_tile_nonempty) in its fused, windowed, raw and compressed modes.
 
 For each 32x32 ray tile the kernel takes the tile's rays (generated
 in-kernel, or rows of a ray matrix), walks the tile's front-to-back
@@ -15,9 +15,19 @@ rows, or, in a compressed scene, derived from its grid-vertex record.
                          shades whole frames.
   trace_windowed         windowed mode (K1b, K1c): one cluster window of a
                          longer walk, the running best carried in and out.
+  trace_raw              raw mode (K1d, K1c; trace_pallas(raw=True), with
+                         xform_raygen=True when no ray matrix is given):
+                         every row starts fresh and comes back as one
+                         compact [t, nx, ny, nz] row, unshaded. Without a
+                         ray matrix the kernel generates the world rays and
+                         takes them into the row's object space, so one
+                         launch traces the tile rows of every instance of a
+                         two-level scene (render/instances.py). Like the
+                         other modes it is bound by arithmetic; its output,
+                         16 KB per row, is its largest stream.
   trace_fused_plain,     the same walks in plain PyTorch (a Python loop
-  trace_windowed_plain   over tiles, clusters and picks; each unit visit
-                         vectorised over 64 leaves x 1,024 rays), operation
+  trace_windowed_plain,  over tiles, clusters and picks; each unit visit
+  trace_raw_plain        vectorised over 64 leaves x 1,024 rays), operation
                          for operation the kernel's arithmetic.
   LAUNCHES               kernel launches so far, per kernel entry.
   render_frame           one frame (render_pallas): fused when every
@@ -56,10 +66,11 @@ MAX_SUB = 8
 # each) fit in one launch; the rgb output is then ~0.8 GB of float32.
 BATCH_TILE_CAP = 65536
 
-# Kernel launches so far, by entry: fused or windowed, precomputed or
+# Kernel launches so far, by entry: fused, windowed or raw, precomputed or
 # compressed tables.
 KERNELS = ("tile_trace_fused", "tile_trace_fused_compressed",
-           "tile_trace_windowed", "tile_trace_windowed_compressed")
+           "tile_trace_windowed", "tile_trace_windowed_compressed",
+           "tile_trace_raw", "tile_trace_raw_compressed")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -133,9 +144,13 @@ def _worst_subs(bt, s, exit_t, smask):
     return torch.stack([torch.where(m, v, 0.0).amax() for m in smask])
 
 
-def _raygen(fr, nsub, cfg, col_f, row_f):
+def _raygen(fr, nsub, cfg, col_f, row_f, xform=False):
     """In-kernel raygen (pallas_tiled._raygen_rows): true divisions.
-    Returns the ray rows (d xyz, m = a x d xyz, s)."""
+    Returns the ray rows (d xyz, m = a x d xyz, s). xform: the pack
+    carries [R^T (9), inv_s, apex_w (3)] after the scene box; s is taken
+    against apex_w, then d_o = R^T d_w (3-term sums left to right), s
+    scales by inv_s, and the moments are about the object-space apex at
+    the pack head."""
     rg = 3 + nsub * 12
 
     def m(i, j):
@@ -155,7 +170,15 @@ def _raygen(fr, nsub, cfg, col_f, row_f):
     ln = torch.sqrt(dx * dx + dy * dy + dz * dz)
     dx, dy, dz = dx / ln, dy / ln, dz / ln
     ax, ay, az = fr[0], fr[1], fr[2]
-    s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz
+    if xform:
+        xf = fr[rg + 18 + 6:]
+        s = (ox - xf[10]) * dx + (oy - xf[11]) * dy + (oz - xf[12]) * dz
+        dx, dy, dz = (xf[0] * dx + xf[1] * dy + xf[2] * dz,
+                      xf[3] * dx + xf[4] * dy + xf[5] * dz,
+                      xf[6] * dx + xf[7] * dy + xf[8] * dz)
+        s = s * xf[9]
+    else:
+        s = (ox - ax) * dx + (oy - ay) * dy + (oz - az) * dz
     return (dx, dy, dz, ay * dz - az * dy, az * dx - ax * dz,
             ax * dy - ay * dx, s)
 
@@ -326,9 +349,12 @@ def _sub_masks(nsub: int, nrows: int, device) -> list[torch.Tensor]:
 
 
 def _plain_walks(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
-                 carry, compressed_=False, corners=None, rows=None):
+                 carry, compressed_=False, corners=None, rows=None,
+                 xform=False):
     """Walk every non-empty tile row of frus (or of `rows`), yielding
-    (row, rays, carry after the walk); carry(row) gives the start."""
+    (row, rays, carry after the walk); carry(row) gives the start. Rays
+    are rows of raymat, or generated (with the object transform of the
+    pack when xform)."""
     dev = frus.device
     nsub = cfg.sub_frusta
     counts = ccount.cpu()
@@ -344,7 +370,7 @@ def _plain_walks(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
         if cnt <= 0:
             continue
         if raymat is None:
-            rays = _raygen(frus[n], nsub, cfg, col_f, row_f)
+            rays = _raygen(frus[n], nsub, cfg, col_f, row_f, xform)
         else:
             rays = tuple(raymat[n, r] for r in range(7))
         tabs = functools.partial(_cluster_tables, tables, compressed_,
@@ -416,6 +442,32 @@ def trace_windowed_plain(ccand, ccount, centry, frus, raymat, carry, meta,
     return t_out, n_out, vis_out.to(dev), elig_out.to(dev)
 
 
+def trace_raw_plain(ccand, ccount, centry, frus, meta, tables,
+                    cfg: RenderConfig, *, raymat=None, compressed=False,
+                    corners=None, rows=None):
+    """Plain-PyTorch version of the raw trace kernel (same inputs and
+    outputs as trace_raw). rows: trace only these tile rows (the others
+    come back as misses with zero counts, as empty rows do)."""
+    dev = frus.device
+    n_rows = frus.shape[0]
+    out = torch.zeros((n_rows, 4, TILE), dtype=torch.float32, device=dev)
+    out[:, 0] = BIG
+    visits = torch.zeros(n_rows, dtype=torch.int32)
+    eligible = torch.zeros(n_rows, dtype=torch.int32)
+    zero = torch.zeros(TILE, dtype=torch.float32, device=dev)
+
+    def fresh(_):
+        return torch.full_like(zero, BIG), [zero, zero, zero], 0, 0
+
+    for n, _, (bt, bn, nv, ne) in _plain_walks(
+            ccand, ccount, centry, frus, raymat, meta, tables, cfg, fresh,
+            compressed, corners, rows, xform=raymat is None):
+        out[n] = torch.stack([bt, *bn])
+        visits[n] = nv
+        eligible[n] = ne
+    return out, visits.to(dev), eligible.to(dev)
+
+
 # ----------------------------------------------------------------------
 # Kernel wrappers.
 
@@ -442,10 +494,15 @@ def _bind(lib):
                          + [vp] * 8                   # carries in, out
                          + [ci] * 5 + [fp, ci, vp])
     windowed.restype = ci
+    raw = lib.rtmm_tile_trace_raw
+    raw.argtypes = ([vp] * 9 + [ci]                   # inputs, grid rows
+                    + [vp] * 3                        # outputs
+                    + [ci] * 5 + [fp, ci, vp])
+    raw.restype = ci
     err = lib.rtmm_cuda_error_string
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
-    return fused, windowed, err
+    return fused, windowed, raw, err
 
 
 def _ptr(x):
@@ -453,9 +510,10 @@ def _ptr(x):
 
 
 def _check_common(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
-                  compressed_, corners):
-    """Device, type and shape checks shared by both wrappers; returns
-    (device, kc, grid rows or 0)."""
+                  compressed_, corners, xform=False):
+    """Device, type and shape checks shared by the wrappers; returns
+    (device, kc, grid rows or 0). xform: a pack without a ray matrix also
+    carries the object transform block."""
     dev = frus.device
     for name, x in (("ccand", ccand), ("ccount", ccount),
                     ("centry", centry), ("raymat", raymat), ("meta", meta),
@@ -469,10 +527,12 @@ def _check_common(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
             and culling.TILE_H % nrows == 0
             and culling.TILE_W % (nsub // nrows) == 0):
         raise ValueError(f"unsupported sub-cone grid {nsub}/{nrows}")
-    if pack != tiled.frustum_pack_len(nsub, with_raygen=raymat is None):
+    if pack != tiled.frustum_pack_len(nsub, with_raygen=raymat is None,
+                                      with_xform=xform and raymat is None):
         raise ValueError(f"frus pack length {pack} does not match "
                          f"sub_frusta={nsub} "
-                         f"{'with' if raymat is None else 'without'} raygen")
+                         f"{'with' if raymat is None else 'without'} raygen"
+                         + (" and object transform" if xform else ""))
     n_cl = meta.shape[0]
     _check("ccand", ccand, torch.int32, (n_rows, kc))
     _check("ccount", ccount, torch.int32, (n_rows,))
@@ -543,7 +603,7 @@ def trace_fused(ccand, ccount, centry, frus, meta, tables,
     if dev.type != "cuda":
         raise ValueError(f"trace_fused runs on cuda or cpu, not {dev}")
     params = shade_params(cfg)
-    fn, _, err_str = _lib()
+    fn, _, _, err_str = _lib()
     n_frames = n_rows // tiles_per_frame
     image = torch.empty((n_frames, ph, pw, 3), dtype=torch.float32,
                         device=dev)
@@ -600,7 +660,7 @@ def trace_windowed(ccand, ccount, centry, frus, raymat, carry, meta, tables,
     if dev.type != "cuda":
         raise ValueError(f"trace_windowed runs on cuda or cpu, not {dev}")
     params = shade_params(cfg)
-    _, fn, err_str = _lib()
+    _, fn, _, err_str = _lib()
     t_out = torch.empty_like(t_in)
     n_out = torch.empty_like(n_in)
     vis_out = torch.empty_like(vis_in)
@@ -621,6 +681,55 @@ def trace_windowed(ccand, ccount, centry, frus, raymat, carry, meta, tables,
     LAUNCHES["tile_trace_windowed_compressed" if compressed
              else "tile_trace_windowed"] += 1
     return t_out, n_out, vis_out, elig_out
+
+
+def trace_raw(ccand, ccount, centry, frus, meta, tables, cfg: RenderConfig,
+              *, raymat=None, compressed=False, corners=None):
+    """Raw trace of every tile row of frus: fresh start, no shading.
+
+    Inputs as trace_fused. raymat (N, 8, TILE) f32 gives the rows' rays,
+    with frus packed without raygen scalars; raymat None generates them
+    in the kernel with the row's object transform, frus packed [apex_o 3,
+    sub planes 12 nsub (object space), px0, py0, ivp 16, object-space
+    scene box 6, R^T 9 row-major, 1/scale, apex_w 3, pad]
+    (tiled.frustum_pack_len(nsub, with_xform=True)): s is taken against
+    apex_w and scaled by 1/scale, the moments about apex_o, so t, t_min
+    and t_max are in object units.
+
+    Returns (out (N, 4, TILE) f32 rows [t (BIG = miss), summed winner
+    normal xyz, unnormalised], visits (N,) int32, eligible (N,) int32);
+    rows with ccount 0 are misses. On CUDA tensors the CUDA kernel runs;
+    on CPU tensors the plain version.
+    """
+    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
+                                  tables, cfg, compressed, corners,
+                                  xform=True)
+    n_rows, kc = ccand.shape
+    if dev.type == "cpu":
+        return trace_raw_plain(ccand, ccount, centry, frus, meta, tables,
+                               cfg, raymat=raymat, compressed=compressed,
+                               corners=corners)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_raw runs on cuda or cpu, not {dev}")
+    params = shade_params(cfg)
+    _, _, fn, err_str = _lib()
+    out = torch.empty((n_rows, 4, TILE), dtype=torch.float32, device=dev)
+    visits = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    eligible = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    hp = (ctypes.c_float * len(params))(*params.tolist())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
+                frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
+                None if compressed else tables.data_ptr(),
+                tables.data_ptr() if compressed else None, _ptr(corners),
+                grows, out.data_ptr(), visits.data_ptr(),
+                eligible.data_ptr(), n_rows, kc, frus.shape[1],
+                cfg.sub_frusta, cfg.sub_rows, hp, len(params), stream)
+    _raise_on(rc, err_str)
+    LAUNCHES["tile_trace_raw_compressed" if compressed
+             else "tile_trace_raw"] += 1
+    return out, visits, eligible
 
 
 # ----------------------------------------------------------------------

@@ -141,9 +141,14 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
                        sub_normals, scene_exit_aabb(scene))
 
 
-def frustum_pack_len(n_sub: int, with_raygen: bool = False) -> int:
-    """Length of the per-tile frustum scalar pack (rounded up to 64)."""
-    return -(-(3 + n_sub * 12 + (18 if with_raygen else 0) + 6) // 64) * 64
+def frustum_pack_len(n_sub: int, with_raygen: bool = False,
+                     with_xform: bool = False) -> int:
+    """Length of the per-tile frustum scalar pack (rounded up to 64).
+    with_xform: the merged-instancing pack appends an object transform
+    block [R^T (9), inv_s (1), apex_w (3)] after the scene AABB (implies
+    with_raygen)."""
+    return -(-(3 + n_sub * 12 + (18 if with_raygen or with_xform else 0)
+               + 6 + (13 if with_xform else 0)) // 64) * 64
 
 
 def frustum_scalars(fi: FrameInputs, raygen_ivp=None,
@@ -180,6 +185,8 @@ def frustum_scalars(fi: FrameInputs, raygen_ivp=None,
 def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
                              kc: int):
     """Per-tile kc nearest remaining clusters + the cleared remaining set.
+    cl_dist is (C,), one apex for every tile, or (tiles, C), an apex per
+    row (merged instancing).
 
     Selection is by (distance, cluster index) order, as jax.lax.top_k
     gives it (ties to the lower index): a stable ascending sort of the
@@ -194,7 +201,8 @@ def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
     n_cl = remaining.shape[1]
     kc = min(kc, n_cl)
     idx = torch.arange(n_cl, device=cl_dist.device)
-    keyed = torch.where(remaining, cl_dist[None, :], float("inf"))
+    d = cl_dist if cl_dist.dim() == 2 else cl_dist[None, :]
+    keyed = torch.where(remaining, d, float("inf"))
     skey, sidx = torch.sort(keyed, dim=1, stable=True)
     skey, sidx = skey[:, :kc], sidx[:, :kc]
     sel = skey < float("inf")
@@ -203,7 +211,6 @@ def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
     # threshold is +inf (nothing stays).
     kth_d = torch.where(sel[:, -1], skey[:, -1], float("inf"))[:, None]
     kth_i = torch.where(sel[:, -1], sidx[:, -1], n_cl)[:, None]
-    d = cl_dist[None, :]
     new_remaining = remaining & ((d > kth_d)
                                  | ((d == kth_d) & (idx[None, :] > kth_i)))
     next_bound = torch.where(new_remaining, d, float("inf")).amin(dim=1)

@@ -51,10 +51,45 @@ def test_missing_asset_exits_1(tmp_path, capsys):
     assert "Micro-mesh file does not exist." in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flags,says", [
+    (["--instances", "3"], "instanced: 3 instances, 72 triangles total"),
+    (["--instances", "3", "--tlas"],
+     "instanced (two-level TLAS): 3 instances, shared BLAS"),
+    (["--compressed", "--instances", "2"], "instanced: 2 instances"),
+    (["--compressed", "--instances", "2", "--tlas"], "two-level TLAS"),
+])
+def test_cli_renders_instances(flags, says, tmp_path, capsys):
+    """A ring of instances, baked into one world-space scene or traced
+    two-level (--tlas), over precomputed or compressed tables."""
+    out = tmp_path / "frames"
+    rc = app.main(["proc:sphere?level=2,subdivisions=0", "--width", "96",
+                   "--height", "64", "--distance", "5", "--device", "cpu",
+                   "--out", str(out), *flags])
+    assert rc == 0
+    assert says in capsys.readouterr().out
+    img = image_io.read_png(str(out / "frame_0000.png"))
+    assert img.shape == (64, 96, 3)
+    assert (np.abs(img.astype(int) - 74).max(-1) > 0).mean() > 0.02
+
+
+def test_cli_tlas_matches_baked(tmp_path):
+    """The two CLI paths render the same ring: a few silhouette pixels may
+    differ by a u8 step, no surface."""
+    frames = []
+    for name, flags in (("baked", []), ("tlas", ["--tlas"])):
+        out = tmp_path / name
+        assert app.main(["proc:sphere?level=2,subdivisions=0", "--width",
+                         "96", "--height", "64", "--distance", "5",
+                         "--instances", "3", "--device", "cpu", "--out",
+                         str(out), *flags]) == 0
+        frames.append(image_io.read_png(str(out / "frame_0000.png")))
+    diff = np.abs(frames[0].astype(int) - frames[1].astype(int)).max(-1)
+    assert int((diff > 1).sum()) <= 3, int((diff > 1).sum())
+
+
 @pytest.mark.parametrize("flags", [
-    ["--instances", "3"], ["--tlas"], ["--pathtrace", "2"], ["--spp", "4"],
-    ["--compressed", "--instances", "2"], ["--cache"], ["--dump-bary"], ["--stats"],
-    ["--pipeline", "ray"], ["--pipeline", "tile"],
+    ["--pathtrace", "2"], ["--spp", "4"], ["--cache"], ["--dump-bary"],
+    ["--stats"], ["--pipeline", "ray"], ["--pipeline", "tile"],
 ])
 def test_later_slice_flags_exit_nonzero(flags, capsys):
     rc = app.main(["proc:sphere?level=2", "--device", "cpu", *flags])

@@ -1,6 +1,7 @@
 """The trace kernel against its plain PyTorch version, on the card, in
 every mode: fused (precomputed and compressed tables, in-kernel raygen or
-a ray matrix) and windowed (precomputed and compressed).
+a ray matrix), windowed (precomputed and compressed) and raw (both ray
+sources, precomputed and compressed), and the instanced frames built on it.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 where there is none (the CPU runs only the plain version). On a machine
@@ -15,6 +16,7 @@ import torch
 from rtmm_tpu_torch.config import RenderConfig
 from rtmm_tpu_torch.models import procedural, scene as scene_mod
 from rtmm_tpu_torch.ops import culling, tiled, tile_trace
+from rtmm_tpu_torch.render import instances as inst_mod
 from rtmm_tpu_torch.utils import camera
 from rtmm_tpu_torch.utils.gate import image_gate
 
@@ -190,3 +192,75 @@ def test_ray_matrix_input_kernel(cuda):
         with_stats=True)
     assert torch.equal(st["kernel_unit_visits"], st0["kernel_unit_visits"])
     _check_image(img, ref, 256, 64)
+
+
+RING = [inst_mod.Instance.from_euler([1.6, 0.2, 0.1], (0.3, -0.5, 0.2), 0.6),
+        inst_mod.Instance.from_euler([-1.1, 0.9, -0.3], (0.1, 2.1, 0.7), 1.3),
+        inst_mod.Instance.from_euler([0.1, -1.4, 0.4], (-0.4, 4.0, 0.1),
+                                     0.9)]
+
+
+def _ivp_far(w, h):
+    tb = camera.Trackball()
+    tb.set_camera([0, 0, 0], [np.radians(-30.0), np.radians(20.0), 0.0], 4.5)
+    return camera.inv_view_proj(tb, w, h)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+@pytest.mark.parametrize("kernel_raygen", [True, False])
+def test_raw_kernel_matches_plain(cuda, compressed, kernel_raygen):
+    """The rows of a merged launch over three non-identity instances:
+    the raw kernel against its plain version, with the in-kernel object
+    transform and with a ray-matrix input."""
+    mesh = procedural.make_icosphere(subdivisions=1, level=3, amplitude=0.12)
+    scene = scene_mod.build_device_scene(mesh, compressed=compressed,
+                                         device=cuda)
+    w, h = 96, 64
+    cfg = RenderConfig(width=w, height=h, kernel_raygen=kernel_raygen)
+    ivp = _ivp_far(w, h)
+    world = inst_mod.world_frame(ivp, cfg, cuda)
+    launch = inst_mod.merged_launch_inputs(
+        scene, *inst_mod.instance_tensors(RING, cuda), ivp, world, cfg)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    args = (launch.ccand, launch.ccount, launch.centry, launch.frus, meta,
+            tables, cfg)
+    name = "tile_trace_raw" + ("_compressed" if compressed else "")
+    before = tile_trace.LAUNCHES[name]
+    k_out, k_vis, k_elig = tile_trace.trace_raw(*args, raymat=launch.raymat,
+                                                **opts)
+    torch.cuda.synchronize()
+    assert tile_trace.LAUNCHES[name] == before + 1
+    p_out, p_vis, p_elig = tile_trace.trace_raw_plain(
+        *args, raymat=launch.raymat, **opts)
+    assert torch.equal(k_vis, p_vis) and torch.equal(k_elig, p_elig)
+    assert int(k_vis.sum()) > 0
+    # Same float32 operations in the same order (nvcc -fmad=false); only
+    # exact-t ties may sum winner normals in another order.
+    assert torch.equal(k_out[:, 0], p_out[:, 0])
+    assert float((k_out - p_out).abs().max()) <= 1e-5
+
+
+def test_instanced_merged_matches_serial_and_baked(cuda):
+    scene = _scene(1, 3, cuda)
+    w, h = 256, 128
+    cfg = RenderConfig(width=w, height=h)
+    ivp = _ivp_far(w, h)
+    tile_trace.reset_launches()
+    merged = inst_mod.render_instanced(scene, RING, ivp, cfg)
+    assert tile_trace.LAUNCHES["tile_trace_raw"] == 1
+    assert tile_trace.LAUNCHES["tile_trace_windowed"] == 0
+    serial = inst_mod.render_instanced(scene, RING, ivp, cfg, serial=True)
+    assert tile_trace.LAUNCHES["tile_trace_windowed"] >= len(RING)
+    capped = inst_mod.render_instanced(
+        scene, RING, ivp, RenderConfig(width=w, height=h,
+                                       instance_tile_cap=1))
+    baked = tile_trace.render_frame(inst_mod.bake_instances(scene, RING),
+                                    ivp, cfg)
+    for other in (serial, capped, baked):
+        _check_gate(merged, other)
+
+
+def _check_gate(a, b):
+    gate = image_gate(a, b)
+    print(gate)
+    assert gate["ok"], gate
