@@ -43,15 +43,32 @@ Phases (any failure raises and exits non-zero):
  12. bench config 10 (256 instances): frame time and covered fraction
      beside config 8's, kernel vs plain on a row subset;
  13. the raw mode with a ray-matrix input on config 3: bit for bit one
-     windowed launch with fresh carries, and against its plain version.
+     windowed launch with fresh carries, and against its plain version;
+ 14. bench config 5, the path tracer (a level-5 icosphere at 512x512,
+     8 sub-cones, 3 bounces, 2 samples per pixel), counted: PathTracer.render
+     for 2 frames and a 32-frame orbit frame by frame, one raw launch (K1d)
+     per frame and one grouped-trace launch (K2) per window of each bounce;
+     K2 against its plain version on frame 0's bounce-1 launch; the
+     reference's engine gate (bench.py:543-585: the pallas and grouped
+     engines on one 256x256 frame, and the grouped engine once more with
+     no candidate cut, to see whether the cut explains a live-count
+     difference); the lane cuts against none, bit for bit; frame, orbit,
+     stage and K2 times, K2's bound, and the grouped engine's trace of
+     the same bounce;
+ 15. config 5 compressed (K1d + K1c, K2 compressed): counted frames, K2
+     against its plain version, the frame within the gate of phase 14's,
+     MiB of both scenes.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -76,19 +93,25 @@ ORBIT_FRAMES = 32
 # the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# float32 operations per (ray, leaf) test, counted from process_unit in
-# csrc/tile_trace.cu: four 6-term dot products (4 x (6 mul + 5 add) = 44),
-# one division, four quotient products, four window compares, one select,
-# one running-minimum compare. Per (ray, unit) visit add the recentered
-# moment (9) and the fold (tb select, subtract, compare, take = 4).
-OPS_PER_RAY_LEAF = 44 + 1 + 4 + 4 + 1 + 1
+# float32 operations per (ray, leaf) test that the function needs, from
+# process_unit in csrc/tile_trace.cu over the unit table's non-zero terms:
+# the table is [-n | -w1 | -w2 | w] over the d rows and [0 | e2 | -e1 | w]
+# over the moment rows, so det is a 3-term dot (3 mul + 2 add) and u, v
+# and the w column are 6-term dots (6 mul + 5 add each); then one
+# division, four quotient products, four window compares, one select, one
+# running-minimum compare. Per (ray, unit) visit add the recentered moment
+# (9) and the fold (tb select, subtract, compare, take = 4). The kernel
+# also multiplies the det column's three zeros.
+OPS_PER_RAY_LEAF = 5 + 3 * 11 + 1 + 4 + 4 + 1 + 1
 OPS_PER_RAY_VISIT = 64 * OPS_PER_RAY_LEAF + 9 + 4
 TILE_RAYS = 32 * 32
 # float32 operations per leaf of a compressed unit visit, counted from
 # stage_grid_units: edges 6, recentred v0 3, three cross products 27,
-# e2.w2 5, t_num 9, negated q entries 12, the w column 12, the normal's
-# norm 7 and its three divisions 3.
-DERIVE_OPS_PER_LEAF = 6 + 3 + 27 + 5 + 9 + 12 + 12 + 7 + 3
+# e2.w2 5, t_num over the unit's recentred apex 6 (3 mul + 2 add + 1 sub),
+# the w column's non-zero entries 9 ((-n + w1) + w2 over d, e1 - e2 over
+# the moment), the normal's norm 7 and its three divisions 3. Sign flips
+# and entries that are 0 are not counted.
+DERIVE_OPS_PER_LEAF = 6 + 3 + 27 + 5 + 6 + 9 + 7 + 3
 # Bench config 9 (bench.py:113-122) and its visit pin (bench.py:268), and
 # the cuts of config 7 (bench.py:106-112: a 707x707 grid, 10^6 triangles,
 # 15,625 clusters) that the windowed compressed phase renders: a 160x160
@@ -115,6 +138,30 @@ ORBIT_8 = 8
 # ms per visit on the card, so this stays under a minute): above it the
 # comparison takes CHECK_TILES rows.
 PLAIN_VISITS = 25000
+# Bench config 5 (bench.py:148-162, :669-674, the orbit :676-696): a
+# level-5 subdiv-0 icosphere path-traced at 512x512 with 8 sub-cones, 3
+# bounces, 2 samples per pixel; the reference's engine gate at 256x256
+# (bench.py:543-585), whose budgets are max(64, px/500) pixels over 4/255
+# and max(16, px/500) over 0.25, and live counts within 4 per bounce.
+PT_SIZE, PT_BOUNCES, PT_SPP, PT_ORBIT, PT_VERIFY = 512, 3, 2, 32, 256
+# float32 operations per (ray, leaf) of K2 that the function needs, from
+# process_unit in csrc/group_trace.cu over the q16 table's non-zero terms
+# (the ray rows are [d, o x d, o, 1]; the table is [-n | -w1 | -w2 | 0] over
+# d, [0 | e2 | -e1 | 0] over o x d, [0 | 0 | 0 | n] over o and
+# [0 | 0 | 0 | -e2.w2] over the ones row): det 3 terms (5 ops), u, v and
+# the w column 6 terms (11 each), t 3 products and 3 adds (6: the ones
+# row needs no product); then one division, four quotients, four window
+# compares, one select, one running-minimum compare. The kernel runs all
+# five 10-term dots (106 operations), zeros included. Per leaf of a
+# compressed unit visit, from stage_grid_unit: edges 6, three cross
+# products 27, e2.w2 5, the w column's non-zero entries 9 ((-n + w1) + w2
+# over d, e1 - e2 over o x d), the normal's norm 7 and divisions 3; sign
+# flips and entries that are 0 are not counted.
+K2_OPS_PER_RAY_LEAF = 5 + 11 + 11 + 6 + 11 + 1 + 4 + 4 + 1 + 1
+K2_DERIVE_OPS_PER_LEAF = 6 + 27 + 5 + 9 + 7 + 3
+# K2 unit visits the plain version may walk in one comparison (~2 ms per
+# visit on the card); above it the comparison takes CHECK_TILES groups.
+PLAIN_VISITS_K2 = 12000
 
 
 def _log(msg: str) -> None:
@@ -196,8 +243,9 @@ def _expect_launches(what: str, expected: dict) -> dict:
     """The launch counts since the last reset; exactly the kernels of
     `expected` must have launched, each as often as given (None: at least
     once)."""
-    from rtmm_tpu_torch.ops import tile_trace
-    got = {k: n for k, n in tile_trace.LAUNCHES.items() if n}
+    from rtmm_tpu_torch.ops import group_trace, tile_trace
+    got = {k: n for k, n in (*tile_trace.LAUNCHES.items(),
+                             *group_trace.LAUNCHES.items()) if n}
     wrong = set(got) != set(expected) or any(
         n is not None and got[k] != n for k, n in expected.items())
     _log(f"[{what}] launches {got}")
@@ -909,6 +957,364 @@ def phase_raw_raymat(card, scene, ivp, cfg):
         raise RuntimeError("raw with a ray matrix disagrees")
 
 
+# ----------------------------------------------------------------------
+# Phases 14-15: the path tracer (config 5) and the grouped trace K2.
+
+@contextlib.contextmanager
+def _k2_recording(rec: dict, launches: bool):
+    """While active: count the window-loop iterations of
+    group_trace.trace_sorted (rec["windows"]), record each call's rays
+    (rec["traces"]: (o, d, live, cfg)) and, with launches, each K2
+    launch's arguments with the index of its bounce (rec["launches"])."""
+    from rtmm_tpu_torch.ops import group_trace
+    orig = (group_trace.trace_group, group_trace.trace_sorted,
+            group_trace._grouped_cluster_window)
+    rec.setdefault("windows", 0)
+    rec.setdefault("traces", [])
+    rec.setdefault("launches", [])
+
+    def trace_group(*args, **kwargs):
+        if launches:
+            rec["launches"].append((len(rec["traces"]), args, kwargs))
+        return orig[0](*args, **kwargs)
+
+    def trace_sorted(scene, o, d, live, cfg):
+        if launches:
+            rec["traces"].append((o, d, live, cfg))
+        else:
+            rec["traces"].append(None)
+        return orig[1](scene, o, d, live, cfg)
+
+    def window(*args, **kwargs):
+        rec["windows"] += 1
+        return orig[2](*args, **kwargs)
+
+    (group_trace.trace_group, group_trace.trace_sorted,
+     group_trace._grouped_cluster_window) = trace_group, trace_sorted, window
+    try:
+        yield rec
+    finally:
+        (group_trace.trace_group, group_trace.trace_sorted,
+         group_trace._grouped_cluster_window) = orig
+
+
+def _reset_all():
+    from rtmm_tpu_torch.ops import group_trace, tile_trace
+    tile_trace.reset_launches()
+    group_trace.reset_launches()
+
+
+def _k2_check(card, name, launch, derive):
+    """K2 on one recorded launch against its plain version, timed, with
+    its bound. Returns (max |diff|, kernel ms, plain ms, bound, visits,
+    gated sub-groups, groups compared)."""
+    from rtmm_tpu_torch.ops import group_trace
+    _, args, kwargs = launch
+    k = group_trace.trace_group(*args, **kwargs)
+    torch.cuda.synchronize()
+    nvis, ngated = int(k[2].sum()), int(k[3].sum())
+    ccount = args[3]
+    groups = (None if nvis <= PLAIN_VISITS_K2
+              else _check_rows(ccount, k[2]))
+    p, plain_ms = _timed(lambda: group_trace.trace_group_plain(
+        *args, **kwargs, groups=groups))
+    sel = slice(None) if groups is None else groups
+    nonempty = int((ccount > 0).sum())
+    n_cmp = nonempty if groups is None else len(groups)
+    same_counts = (torch.equal(k[2][sel], p[2][sel])
+                   and torch.equal(k[3][sel], p[3][sel]))
+    same_t = torch.equal(k[0][sel], p[0][sel])
+    err_t = float((k[0][sel] - p[0][sel]).abs().max())
+    err_n = float((k[1][sel] - p[1][sel]).abs().max())
+    _log(f"[{name} check] K2 vs plain on {n_cmp} of {nonempty} non-empty "
+         f"groups ({args[0].shape[0]} in the launch): visits "
+         f"{int(k[2][sel].sum())} of {nvis} and gated sub-groups "
+         f"{int(k[3][sel].sum())} of {ngated} equal per group: "
+         f"{same_counts}; t bit-equal: {same_t} (max |diff| {err_t:.3e}); "
+         f"normals max |diff| {err_n:.3e} (<= {MAX_ABS_ERR:g}: exact-t "
+         "ties sum in another order)")
+    if not (same_counts and same_t) or err_n > MAX_ABS_ERR:
+        raise RuntimeError(f"{name}: K2 disagrees with its plain version")
+    if groups is not None and len(groups) < min(CHECK_TILES, nonempty):
+        raise RuntimeError(f"{name}: too few groups compared")
+
+    def kernel_once():
+        group_trace.trace_group(*args, **kwargs)
+
+    kernel_once()
+    kernel_ms = _events_ms(kernel_once, reps=10)
+    nbytes = _nbytes(*args[:10], *(v for v in kwargs.values()
+                                   if isinstance(v, torch.Tensor)),
+                     *k)
+    ops = ngated * 128 * 64 * K2_OPS_PER_RAY_LEAF
+    if derive:
+        ops += nvis * 64 * K2_DERIVE_OPS_PER_LEAF
+    ops_ms = ops / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    bound = (max(ops_ms, bytes_ms), by)
+    _log(f"[bound {name}] {card}: {ops:.4e} fp32 ops ({ngated} gated "
+         f"sub-groups x 128 rays x 64 leaves x {K2_OPS_PER_RAY_LEAF}"
+         + (f" + {nvis} visits x 64 leaves x {K2_DERIVE_OPS_PER_LEAF} derive"
+            if derive else "")
+         + f") / 67 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB / "
+         f"3.35 TB/s = {bytes_ms:.4f} ms; bound {bound[0]:.4f} ms ({by}); "
+         f"K2 {kernel_ms:.4f} ms, at {bound[0] / kernel_ms:.3f} of it")
+    return (max(err_t, err_n), kernel_ms, plain_ms, bound, nvis, ngated,
+            n_cmp)
+
+
+def _k2_entry(name, launches, err, kernel_ms, plain_ms, bound, **extra):
+    entry = {"name": name, "route": "cuda",
+             "source": "rtmm_tpu_torch/csrc/group_trace.cu",
+             "replaces": "rtmm_tpu/ops/pallas_grouped.py:686 (_launch, "
+                         + ("compressed grid_su)" if "compressed" in name
+                            else "precomputed unit_q16)"),
+             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None}
+    entry.update(extra)
+    return entry
+
+
+def _pt_frames(tracer, ivps, name, kernels):
+    """The counted main path of a path-traced configuration: frames
+    through PathTracer.render, launches held to one raw launch per frame
+    and one K2 launch per window iteration. Returns the (image, stats)
+    pairs and the K2 launches."""
+    _reset_all()
+    rec = {}
+    with _k2_recording(rec, launches=False):
+        out = [tracer.render(m) for m in ivps]
+    torch.cuda.synchronize()
+    raw, k2 = kernels
+    got = _expect_launches(f"{name} main path",
+                           {raw: len(ivps), k2: rec["windows"]})
+    for img, st in out:
+        live = st["live_rays_per_bounce"]
+        if not (bool(torch.isfinite(img).all())
+                and tuple(img.shape) == (PT_SIZE, PT_SIZE, 3)
+                and bool((live[1:] <= live[:-1]).all()) and live[0] > 0):
+            raise RuntimeError(f"{name}: frame malformed or live counts "
+                               f"not monotone: {live.tolist()}")
+    _log(f"[{name} main path] {len(ivps)} frames: {got[raw]} raw launches, "
+         f"{got[k2]} K2 launches = {rec['windows']} window iterations over "
+         f"{len(rec['traces'])} bounce traces; frames finite, live counts "
+         f"monotone")
+    return out, got[k2]
+
+
+def _pt_gate(a, b) -> dict:
+    """bench.py's config-5 gate between two frames (bench.py:583-584)."""
+    from rtmm_tpu_torch.utils.gate import image_gate
+    return image_gate(a, b, per=500, big_per=500)
+
+
+def phase_config5(card):
+    """Config 5: the path tracer end to end (K1d primaries, K2 bounces)."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+    from rtmm_tpu_torch.ops import group_trace, grouped
+    from rtmm_tpu_torch.render import pathtrace
+
+    t0 = time.perf_counter()
+    mesh = procedural.make_icosphere(subdivisions=0, level=5, amplitude=0.1)
+    scene = scene_mod.build_device_scene(mesh, device="cuda")
+    torch.cuda.synchronize()
+    cfg = RenderConfig(width=PT_SIZE, height=PT_SIZE, sub_frusta=8)
+    pt = pathtrace.PathTraceConfig(bounces=PT_BOUNCES,
+                                   samples_per_pixel=PT_SPP, ray_chunk=16384)
+    tracer = pathtrace.PathTracer(scene, cfg, pt)
+    _log(f"[config 5] {mesh.num_triangles} base triangles, level "
+         f"{mesh.max_level}: U = {scene.num_units} units, C = "
+         f"{scene.num_clusters} clusters; {scene.device_bytes() / 2**20:.2f} "
+         f"MiB on the card; bounce t_max {tracer.pt.bounce_t_max:.4f}; "
+         f"build {time.perf_counter() - t0:.1f} s")
+    ivp = _camera(25.0, cfg)
+    ivps = [_camera(25.0 + 360.0 / PT_ORBIT * k, cfg) for k in range(PT_ORBIT)]
+
+    # -- main path, counted ------------------------------------------------
+    out, k2_launches = _pt_frames(tracer, [ivp, ivp] + ivps, "config 5",
+                                  ("tile_trace_raw", "group_trace"))
+    img0, st0 = out[0]
+    if not (torch.equal(out[1][0], img0) and torch.equal(out[2][0], img0)):
+        raise RuntimeError("config 5: frame 0 is not deterministic")
+    live0 = st0["live_rays_per_bounce"].cpu()
+    live_orbit = torch.stack([st["live_rays_per_bounce"].cpu()
+                              for _, st in out[2:]]).mean(dim=0)
+    rays0 = PT_SIZE * PT_SIZE + float(live0[:-1].sum()) * PT_SPP
+    rays_orbit = PT_SIZE * PT_SIZE + float(live_orbit[:-1].sum()) * PT_SPP
+    _log(f"[config 5] frame 0 live rays per bounce (per sample) "
+         f"{live0.tolist()}, extra window passes "
+         f"{st0['extra_window_passes_per_bounce'].tolist()}; orbit mean "
+         f"{[round(v, 2) for v in live_orbit.tolist()]}; rays traced per "
+         f"frame (bench.py:701-708): frame 0 {rays0:.0f}, orbit {rays_orbit:.0f}")
+
+    # -- K2 against its plain version on frame 0's bounce-1 launch ---------
+    rec = {}
+    with _k2_recording(rec, launches=True):
+        img_r, _ = tracer.render(ivp)
+    torch.cuda.synchronize()
+    if not torch.equal(img_r, img0):
+        raise RuntimeError("config 5: recorded frame differs")
+    first = rec["launches"][0]
+    err, k2_ms, plain_ms, bound, nvis, ngated, n_cmp = _k2_check(
+        card, "config 5", first, False)
+
+    # -- the reference's engine gate (bench.py:543-585) ------------------
+    cfgv = dataclasses.replace(cfg, width=PT_VERIFY, height=PT_VERIFY)
+    ivpv = _camera(25.0, cfgv)
+    pv = pathtrace.PathTracer(scene, cfgv, dataclasses.replace(
+        pt, engine="pallas"))
+    gv = pathtrace.PathTracer(scene, cfgv, dataclasses.replace(
+        pt, engine="grouped"))
+    a, sa = pv.render(ivpv)
+    (b, sb), grouped_frame_ms = _timed(lambda: gv.render(ivpv))
+    gate = _pt_gate(a, b)
+    dlive = float((sa["live_rays_per_bounce"]
+                   - sb["live_rays_per_bounce"]).abs().max())
+    _log(f"[config 5 verify] pallas vs grouped engine at {PT_VERIFY}x"
+         f"{PT_VERIFY}: {gate}; live {sa['live_rays_per_bounce'].tolist()} "
+         f"vs {sb['live_rays_per_bounce'].tolist()} (max |diff| {dlive}); "
+         f"grouped overflow {sb['overflow_groups_per_bounce'].tolist()}; the "
+         f"grouped frame took {grouped_frame_ms:.1f} ms on the host's clock")
+    if not gate["ok"] or dlive > 4:
+        raise RuntimeError(f"config 5: engines disagree: {gate}, {dlive}")
+    # Does the grouped engine's 96-candidate cut explain the live-count
+    # gap? The same frame with every unit a candidate (no overflow).
+    capped = grouped.trace_sorted
+    grouped.trace_sorted = functools.partial(
+        capped, max_group_candidates=scene.num_units)
+    try:
+        b_all, sb_all = gv.render(ivpv)
+    finally:
+        grouped.trace_sorted = capped
+    dlive_all = float((sa["live_rays_per_bounce"]
+                       - sb_all["live_rays_per_bounce"]).abs().max())
+    _log(f"[config 5 verify] grouped engine with all {scene.num_units} units "
+         f"as candidates: live {sb_all['live_rays_per_bounce'].tolist()} "
+         f"(max |diff| to pallas {dlive_all}); overflow "
+         f"{sb_all['overflow_groups_per_bounce'].tolist()}; pallas vs it: "
+         f"{_pt_gate(a, b_all)}")
+
+    # -- the lane cuts are exact --------------------------------------------
+    os.environ["RTMM_PT_CAP"] = "0"
+    try:
+        img_nc, st_nc = tracer.render(ivp)
+    finally:
+        del os.environ["RTMM_PT_CAP"]
+    caps = pathtrace._cap_schedule(PT_SPP * PT_SIZE * PT_SIZE, "pallas",
+                                   PT_BOUNCES)
+    same = (torch.equal(img_nc, img0) and torch.equal(
+        st_nc["live_rays_per_bounce"], st0["live_rays_per_bounce"]))
+    _log(f"[config 5 compaction] cap schedule {caps} against RTMM_PT_CAP=0: "
+         f"image and live counts bit-equal: {same}")
+    if not same or not all(caps):
+        raise RuntimeError("config 5: the lane cuts change the frame")
+
+    # -- timing (CUDA events) -----------------------------------------------
+    def frame_once():
+        tracer.render(ivp)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=1, rounds=5)
+
+    def orbit_once():
+        for m in ivps:
+            tracer.render(m)
+
+    orbit_once()
+    orbit_ms = _events_ms(orbit_once, reps=1, rounds=2) / PT_ORBIT
+    timings = {}
+    tracer.render(ivp, timings=timings)
+    torch.cuda.synchronize()
+    stages = {k: sum(s.elapsed_time(e) for s, e in v)
+              for k, v in timings.items()}
+
+    def replay(bounce):
+        for b, args, kwargs in rec["launches"]:
+            if b == bounce:
+                group_trace.trace_group(*args, **kwargs)
+
+    per_bounce = {}
+    for b in sorted({b for b, _, _ in rec["launches"]}):
+        replay(b)
+        per_bounce[b] = _events_ms(lambda b=b: replay(b), reps=3)
+    o1, d1, l1, cfg_b = rec["traces"][0]
+    k2_trace_ms = _events_ms(lambda: group_trace.trace_sorted(
+        scene, o1, d1, l1, cfg_b), reps=1, rounds=3)
+    grouped.trace_sorted(scene, o1, d1, l1, cfg_b)
+    grouped_ms = _events_ms(lambda: grouped.trace_sorted(
+        scene, o1, d1, l1, cfg_b), reps=1, rounds=3)
+    _log(f"[config 5 time] {card}: frame {frame_ms:.4f} ms "
+         f"({rays0 / (frame_ms * 1e-3) / 1e6:.2f} Mrays/s, {PT_SIZE * PT_SIZE / (frame_ms * 1e-3) / 1e6:.2f} Mpx/s); orbit "
+         f"of {PT_ORBIT} frames {orbit_ms:.4f} ms/frame "
+         f"({rays_orbit / (orbit_ms * 1e-3) / 1e6:.2f} Mrays/s); stages of "
+         "one frame (CUDA events): "
+         + "; ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
+    _log(f"[config 5 K2] {card}: bounce-1 launch {k2_ms:.4f} ms for {nvis} "
+         f"visits ({k2_ms / max(nvis, 1) * 1e3:.3f} us per visit), {ngated} "
+         f"gated sub-groups on {first[1][0].shape[0]} groups; each bounce's "
+         "launches replayed: "
+         + "; ".join(f"bounce {b} {v:.4f} ms" for b, v in
+                     per_bounce.items())
+         + f"; bounce 1's whole secondary trace (prologue + window loop) "
+         f"{k2_trace_ms:.4f} ms; the grouped engine on the same rays "
+         f"{grouped_ms:.4f} ms; plain K2 {plain_ms:.1f} ms on {n_cmp} groups")
+    entry = _k2_entry(
+        "group_trace", k2_launches, err, k2_ms, plain_ms, bound,
+        plain_groups=n_cmp, visits=nvis, frame_ms=frame_ms,
+        orbit_ms_per_frame=orbit_ms,
+        mrays_per_s=rays_orbit / (orbit_ms * 1e-3) / 1e6,
+        k2_ms_per_bounce=[per_bounce[b] for b in sorted(per_bounce)],
+        grouped_engine_bounce1_ms=grouped_ms, stages_ms=stages,
+        verify=gate)
+    return entry, img0, scene.device_bytes(), mesh, cfg, pt, ivp
+
+
+def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
+    """Config 5 over a compressed scene (RTMM_PT_COMPRESSED=1,
+    bench.py:152-156): K1d + K1c primaries, K2 compressed bounces."""
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.render import pathtrace
+
+    scene = scene_mod.build_device_scene(mesh, compressed=True,
+                                         device="cuda")
+    tracer = pathtrace.PathTracer(scene, cfg, pt)
+    _log(f"[config 5 compressed] U = {scene.num_units} units, indexed "
+         f"{scene.indexed}: {scene.device_bytes() / 2**20:.2f} MiB on the card "
+         f"against {bytes5 / 2**20:.2f} MiB precomputed")
+    out, k2_launches = _pt_frames(
+        tracer, [ivp, ivp], "config 5 compressed",
+        ("tile_trace_raw_compressed", "group_trace_compressed"))
+    img, st = out[0]
+    gate = _pt_gate(img, img5)
+    _log(f"[config 5 compressed] frame vs the precomputed scene's: {gate}; "
+         f"live {st['live_rays_per_bounce'].tolist()}")
+    if not gate["ok"]:
+        raise RuntimeError(f"config 5 compressed fails the gate: {gate}")
+    rec = {}
+    with _k2_recording(rec, launches=True):
+        tracer.render(ivp)
+    torch.cuda.synchronize()
+    err, k2_ms, plain_ms, bound, nvis, ngated, n_cmp = _k2_check(
+        card, "config 5 compressed", rec["launches"][0], True)
+
+    def frame_once():
+        tracer.render(ivp)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=1, rounds=3)
+    _log(f"[config 5 compressed time] {card}: frame {frame_ms:.4f} ms; K2 "
+         f"bounce-1 launch {k2_ms:.4f} ms for {nvis} visits; plain K2 "
+         f"{plain_ms:.1f} ms on {n_cmp} groups")
+    return _k2_entry("group_trace_compressed", k2_launches, err, k2_ms,
+                     plain_ms, bound, plain_groups=n_cmp, visits=nvis,
+                     frame_ms=frame_ms,
+                     mib=scene.device_bytes() / 2**20,
+                     mib_precomputed=bytes5 / 2**20, verify=gate)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1110,6 +1516,11 @@ def main() -> int:
         "ms", "plain_ms", "plain_rows", "bound_ms", "frame_ms",
         "orbit_ms_per_frame", "covered_frac_1080p", "max_abs_err")}
     phase_raw_raymat(card, scene, ivp, cfg)
+    # -- 14-15. the path tracer: K1d primaries, K2 bounces -------------------
+    entry5, img5, bytes5, mesh5, cfg5, pt5, ivp5 = phase_config5(card)
+    kernels.append(entry5)
+    kernels.append(phase_config5_compressed(card, mesh5, cfg5, pt5, ivp5,
+                                            img5, bytes5))
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,6 +9,8 @@ frames are written as PNG.
     python -m rtmm_tpu_torch.app proc:sphere?level=3 --width 256 \
         --height 256 --frames 2 --out frames            # on the card
     python -m rtmm_tpu_torch.app ... --device cpu       # plain PyTorch
+    python -m rtmm_tpu_torch.app proc:sphere?level=3 --pathtrace 3 \
+        --spp 2 --width 256 --height 256                 # path tracer
 
 Flags of features the port does not have yet exit with status 2 and say
 so.
@@ -16,6 +18,7 @@ so.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -27,7 +30,8 @@ from .config import RenderConfig
 from .io import image as image_io
 from .models import procedural, scene as scene_mod
 from .render import instances as inst_mod
-from .render.renderer import FramePipeline, Renderer
+from .render import pathtrace
+from .render.renderer import FramePipeline, Renderer, _quantize
 from .utils import camera
 
 
@@ -58,13 +62,10 @@ def load_asset(path: str):
 def _not_ported(args) -> str | None:
     """The message for the first flag of a later slice, or None."""
     later = [
-        (args.pathtrace > 0, "--pathtrace (path tracer)"),
-        (args.spp is not None, "--spp (path tracer)"),
         (args.cache, "--cache (scene cache)"),
         (args.dump_bary, "--dump-bary (.bary inspector)"),
-        (args.stats, "--stats (traversal heatmap)"),
-        (args.pipeline in ("ray", "tile"),
-         f"--pipeline {args.pipeline} (the per-ray and XLA tile backends)"),
+        (args.stats and args.pathtrace == 0, "--stats (traversal heatmap)"),
+        (args.pipeline == "ray", "--pipeline ray (the per-ray backend)"),
     ]
     for flagged, what in later:
         if flagged:
@@ -94,8 +95,10 @@ def main(argv=None) -> int:
                              "plain PyTorch version")
     parser.add_argument("--pipeline", default="auto",
                         choices=["auto", "pallas", "ray", "tile"],
-                        help="trace backend: auto and pallas are the fused "
-                             "tile kernel; ray and tile are not ported yet")
+                        help="trace backend: auto and pallas are the tile "
+                             "kernel (its plain version on the CPU); tile "
+                             "is the kernel-free XLA tile backend; ray is "
+                             "not ported yet")
     parser.add_argument("--compressed", action="store_true",
                         help="store only per-unit grid-vertex records and "
                              "derive each visited unit's tables in the "
@@ -113,12 +116,17 @@ def main(argv=None) -> int:
                              "(per-instance ray transform into the shared "
                              "BLAS, O(scene+N) memory) instead of baking "
                              "world-space copies")
-    # Flags of later slices (kept so that they fail clearly).
-    parser.add_argument("--stats", action="store_true")
-    parser.add_argument("--cache", action="store_true")
     parser.add_argument("--pathtrace", type=int, default=0,
-                        metavar="BOUNCES")
-    parser.add_argument("--spp", type=int, default=None)
+                        metavar="BOUNCES",
+                        help="path-trace N bounces (Lambertian, the "
+                             "reference's lights + sky term)")
+    parser.add_argument("--spp", type=int, default=4,
+                        help="samples per pixel for --pathtrace")
+    parser.add_argument("--stats", action="store_true",
+                        help="with --pathtrace: print the live rays per "
+                             "bounce")
+    # Flags of later slices (kept so that they fail clearly).
+    parser.add_argument("--cache", action="store_true")
     parser.add_argument("--dump-bary", action="store_true")
     args = parser.parse_args(argv)
 
@@ -135,7 +143,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    cfg = RenderConfig(width=args.width, height=args.height)
+    cfg = RenderConfig(width=args.width, height=args.height,
+                       pipeline=args.pipeline)
     t0 = time.perf_counter()
     mesh = load_asset(args.asset)
     print(f"loaded: {mesh.num_triangles} base triangles, "
@@ -185,6 +194,8 @@ def main(argv=None) -> int:
               f"({'PASS' if rmse <= 1e-3 else 'FAIL'} at 1e-3)")
         return 0 if rmse <= 1e-3 else 2
 
+    if args.pathtrace > 0:
+        return _path_trace(ds, cfg, tb, args)
     if instance_ring is not None:
         renderer = inst_mod.InstancedRenderer(ds, instance_ring, cfg)
     else:
@@ -214,6 +225,34 @@ def main(argv=None) -> int:
     print(f"{args.frames} frame(s) in {dt * 1e3:.1f} ms on {args.device} "
           f"({args.frames * cfg.width * cfg.height / dt / 1e6:.2f} Mrays/s, "
           "PNG writes included)")
+    return 0
+
+
+def _path_trace(ds, cfg: RenderConfig, tb, args) -> int:
+    """--pathtrace N --spp K: frames through PathTracer with 8 sub-cones
+    per tile (silhouette tiles dominate the primary trace of a path-traced
+    frame), written as PNG."""
+    tracer = pathtrace.PathTracer(
+        ds, dataclasses.replace(cfg, sub_frusta=8),
+        pathtrace.PathTraceConfig(bounces=args.pathtrace,
+                                  samples_per_pixel=args.spp))
+    os.makedirs(args.out, exist_ok=True)
+    for frame in range(args.frames):
+        ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
+                                   cfg.fov_y_degrees, cfg.near, cfg.far)
+        t0 = time.perf_counter()
+        img, stats = tracer.render(ivp)
+        u8 = _quantize(img).cpu().numpy()
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.out, f"frame_{frame:04d}.png")
+        image_io.write_png(path, u8)
+        print(f"frame {frame}: {dt * 1e3:.1f} ms on {args.device} "
+              f"({tracer.pt.bounces} bounces, {tracer.pt.samples_per_pixel} "
+              f"spp) -> {path}")
+        if args.stats:
+            print("  live rays/bounce:",
+                  stats["live_rays_per_bounce"].tolist())
+        tb.rotation_euler[1] -= np.radians(args.orbit)
     return 0
 
 

@@ -7,13 +7,15 @@ reference values as defaults, so benchmarks and tests can tune them without
 recompiling shaders.
 
 Port note: this keeps the fields that define the reference semantics of
-the primary frame. Dropped from the JAX package's RenderConfig:
+the frame and of the ported backends: `pipeline` ("auto" and "pallas" are
+the hand-written tile kernel, on the CPU its plain version; "tile" is the
+kernel-free XLA tile backend), and that backend's `clusters_per_window`
+and `tile_chunk`. Dropped from the JAX package's RenderConfig:
   * TPU-only knobs: `tiles_per_block`, `mt_precision` (the port computes
     in float32 throughout), `compute_dtype`;
-  * fields of backends not ported yet: `pipeline` (the CLI's --pipeline
-    flag selects instead), `max_candidates`, `ray_chunk` (per-ray
-    backend), `clusters_per_window`, `tile_chunk` (XLA tile backend),
-    `debug_guards` (sanitizer).
+  * fields of backends not ported yet: `max_candidates`, `ray_chunk`
+    (per-ray backend; pipeline "ray" is refused), `debug_guards`
+    (sanitizer).
 """
 from __future__ import annotations
 
@@ -46,6 +48,14 @@ class RenderConfig:
     mesh_color: tuple[float, float, float] = (0.51, 0.62, 0.82)
     light_color: tuple[float, float, float] = (1.0, 1.0, 1.0)
     light_intensity: float = 22.0
+
+    # Trace backend: "auto" / "pallas" = the tile-trace kernel (its plain
+    # version on the CPU); "tile" = the XLA tile backend (ops/tiled.py).
+    pipeline: str = "auto"
+    # XLA tile backend: clusters consumed per candidate window (window
+    # capacity = clusters_per_window * 64 units) and tiles per chunk.
+    clusters_per_window: int = 4
+    tile_chunk: int = 256
 
     # Per-tile cluster-list capacity of one trace launch. A scene with
     # more clusters is traced in windows of this many clusters (the

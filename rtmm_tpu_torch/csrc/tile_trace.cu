@@ -46,9 +46,10 @@
 // corner gather is an indexed load (the TPU's one-hot matmul gathers the
 // same value exactly).
 //
-// What bounds it: arithmetic. Each (ray, leaf) test is ~55 float32
+// What bounds it: arithmetic. Each (ray, leaf) test here is ~55 float32
 // operations (four 6-term dot products, one correctly rounded division,
-// four products and the compares); the unit tables or records are read
+// four products and the compares; the det column's moment rows are 0, so
+// the test needs ~49 of them); the unit tables or records are read
 // once per visit from L2 into shared memory and broadcast to all 1,024
 // threads, so device-memory traffic is small (chip_smoke.py prints both
 // bounds). The raw mode writes 16 KB per row, its largest stream, and

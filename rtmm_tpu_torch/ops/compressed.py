@@ -11,10 +11,14 @@ cross products and e2.w2, the reference's on-the-fly reconstruction
 
 Host NumPy part (copied from the JAX package's ops/compressed.py, which
 the port does not import): record layout constants, gather matrices and
-corner indices, stitched topologies, grid positions and the NumPy oracle
-derive_unit_tables_np. Torch part: corner_lanes (a gather matrix as lane
-indices) and derive_unit_tables, the plain version of the trace kernel's
-in-kernel derive (csrc/tile_trace.cu, stage_grid_units).
+corner indices, stitched topologies, grid positions and the NumPy oracles
+derive_unit_tables_np (recentered primary-ray tables) and derive_q16_np
+(absolute secondary-ray tables). Torch part: corner_lanes (a gather
+matrix as lane indices); derive_unit_tables, the plain version of the tile
+trace kernel's derive (csrc/tile_trace.cu, stage_grid_units); derive_q,
+its t_num-folded form for the XLA tile backend; derive_q16, the plain
+version of the grouped trace kernel's derive (csrc/group_trace.cu,
+stage_grid_unit), also the grouped engine's.
 """
 from __future__ import annotations
 
@@ -265,20 +269,7 @@ def derive_unit_tables(records: torch.Tensor, apex: torch.Tensor,
     order are those of pallas_tiled._derive_unit, which the trace kernel
     repeats (csrc/tile_trace.cu, stage_grid_units).
     """
-    n_units = records.shape[0]
-    pos = records[:, 0:3, :]                                  # (n, 3, GL)
-    if corners is None:
-        idx = records[:, 3:6, 0:LPU].to(torch.int64)          # (n, 3, LPU)
-    else:
-        idx = corners.to(device=records.device,
-                         dtype=torch.int64).expand(n_units, 3, LPU)
-
-    def corner(j):                                            # 3 x (n, LPU)
-        lanes = idx[:, j:j + 1, :].expand(n_units, 3, LPU)
-        v = torch.gather(pos, 2, lanes)
-        return [v[:, 0], v[:, 1], v[:, 2]]
-
-    v0, v1, v2 = corner(0), corner(1), corner(2)
+    v0, v1, v2 = _corners(records, corners)
     c = [centers[:, r:r + 1] for r in range(3)]               # (n, 1)
     a = [apex[r] for r in range(3)]
     e1 = [v1[r] - v0[r] for r in range(3)]
@@ -300,3 +291,113 @@ def derive_unit_tables(records: torch.Tensor, apex: torch.Tensor,
         torch.sqrt(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2]), 1e-20)
     nrm = torch.stack([torch.div(nv[r], nn) for r in range(3)], dim=-1)
     return q, t_num, nrm
+
+
+def derive_q16_np(grid: np.ndarray, su: int, indexed: bool = False):
+    """NumPy oracle of the arbitrary-origin (secondary-bounce) MT table.
+
+    Derives the scene's unit_q16 layout — ray rows [d(3), o x d(3), o(3),
+    1, pad(6)], absolute coordinates — from grid records (the same closed
+    form, so values match the precomputed table up to fp reassociation).
+    Returns dict(q16 (U, 16, 4*LPU), nrm (U, LPU, 3))."""
+    pos = grid[:, 0:3, :]
+    if indexed:
+        idx = _corner_indices_np(grid)
+        take = lambda j: np.take_along_axis(                  # noqa: E731
+            pos, idx[:, j][:, None, :], axis=2).transpose(0, 2, 1)
+        v0, v1, v2 = take(0), take(1), take(2)                # (U, LPU, 3)
+    else:
+        g = leaf_gather_matrix(su)
+        v = pos @ g
+        v0 = v[:, :, 0 * LPU:1 * LPU].transpose(0, 2, 1)
+        v1 = v[:, :, 1 * LPU:2 * LPU].transpose(0, 2, 1)
+        v2 = v[:, :, 2 * LPU:3 * LPU].transpose(0, 2, 1)
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = np.cross(e1, e2)
+    w1a = np.cross(e2, v0)
+    w2a = np.cross(v0, e1)
+    e2w2a = (e2 * w2a).sum(-1).astype(np.float32)
+    u = grid.shape[0]
+    q16 = np.zeros((u, 16, 4 * LPU), np.float32)
+    q16[:, 0:3, 0 * LPU:1 * LPU] = -n.transpose(0, 2, 1)
+    q16[:, 0:3, 1 * LPU:2 * LPU] = -w1a.transpose(0, 2, 1)
+    q16[:, 3:6, 1 * LPU:2 * LPU] = e2.transpose(0, 2, 1)
+    q16[:, 0:3, 2 * LPU:3 * LPU] = -w2a.transpose(0, 2, 1)
+    q16[:, 3:6, 2 * LPU:3 * LPU] = -e1.transpose(0, 2, 1)
+    q16[:, 6:9, 3 * LPU:4 * LPU] = n.transpose(0, 2, 1)
+    q16[:, 9, 3 * LPU:4 * LPU] = -e2w2a
+    norm = np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    return dict(q16=q16, nrm=(n / norm).astype(np.float32))
+
+
+def _corners(records: torch.Tensor, corners: torch.Tensor | None):
+    """The three corner positions of every leaf: 3 lists of 3 (n, LPU)
+    component tensors, gathered by the shared corner lanes or (corners
+    None) each record's own index rows 3-5."""
+    n_units = records.shape[0]
+    pos = records[:, 0:3, :]                                  # (n, 3, GL)
+    if corners is None:
+        idx = records[:, 3:6, 0:LPU].to(torch.int64)          # (n, 3, LPU)
+    else:
+        idx = corners.to(device=records.device,
+                         dtype=torch.int64).expand(n_units, 3, LPU)
+
+    def corner(j):
+        lanes = idx[:, j:j + 1, :].expand(n_units, 3, LPU)
+        v = torch.gather(pos, 2, lanes)
+        return [v[:, 0], v[:, 1], v[:, 2]]
+
+    return corner(0), corner(1), corner(2)
+
+
+def derive_q16(records: torch.Tensor, corners: torch.Tensor | None = None):
+    """Derive the arbitrary-origin MT tables of n units from their records
+    (the torch counterpart of the JAX package's derive_q16_jnp, and the
+    plain version of the grouped trace kernel's derive, csrc/group_trace.cu
+    stage_grid_unit).
+
+    records (n, GRID_ROWS | IDX_ROWS, GRID_LANES) f32; corners (3, LPU)
+    shared corner lanes, or None to read each record's index rows 3-5.
+    Returns (q16 (n, 16, 4*LPU): rows [-n|-w1|-w2|0] over the d rows,
+    [0|e2|-e1|0] over the moment rows, [0|0|0|n] over the origin rows and
+    [0|0|0|-e2.w2] over the ones row, w1 = e2 x v0, w2 = v0 x e1; nrm (n,
+    LPU, 3) normalised normals). Sums run left to right, as the kernel's.
+    """
+    v0, v1, v2 = _corners(records, corners)
+    e1 = [v1[r] - v0[r] for r in range(3)]
+    e2 = [v2[r] - v0[r] for r in range(3)]
+    nv = _cross(e1, e2)
+    w1 = _cross(e2, v0)
+    w2 = _cross(v0, e1)
+    e2w2 = e2[0] * w2[0] + e2[1] * w2[1] + e2[2] * w2[2]
+    zero = torch.zeros_like(e1[0])
+    rows = ([torch.cat([-nv[r], -w1[r], -w2[r], zero], dim=1)
+             for r in range(3)]
+            + [torch.cat([zero, e2[r], -e1[r], zero], dim=1)
+               for r in range(3)]
+            + [torch.cat([zero, zero, zero, nv[r]], dim=1) for r in range(3)]
+            + [torch.cat([zero, zero, zero, -e2w2], dim=1)])
+    pad = torch.zeros_like(rows[0])
+    q16 = torch.stack(rows + [pad] * 6, dim=1)                # (n, 16, 4L)
+    nn = torch.clamp_min(
+        torch.sqrt(nv[0] * nv[0] + nv[1] * nv[1] + nv[2] * nv[2]), 1e-20)
+    nrm = torch.stack([torch.div(nv[r], nn) for r in range(3)], dim=-1)
+    return q16, nrm
+
+
+def derive_q(records: torch.Tensor, apex: torch.Tensor,
+             centers: torch.Tensor, corners: torch.Tensor | None = None):
+    """Derive the recentered primary-ray MT tables of n units for the
+    tile backend (the counterpart of the JAX package's derive_q_jnp).
+
+    Returns (q (n, 8, 4*LPU) — the det|u|v|t blocks of unit_qn, with the
+    per-frame t_num = (apex-c).n - e2.w2 in row 7 of the t block; nrm (n,
+    LPU, 3))."""
+    q6, t_num, nrm = derive_unit_tables(records, apex, centers, corners)
+    n_units = records.shape[0]
+    q = torch.zeros((n_units, 8, 4 * LPU), dtype=torch.float32,
+                    device=records.device)
+    q[:, 0:6, 0:3 * LPU] = q6
+    q[:, 7, 3 * LPU:4 * LPU] = t_num
+    return q, nrm

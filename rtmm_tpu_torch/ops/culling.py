@@ -207,3 +207,52 @@ def aabb_distance(apex: torch.Tensor, aabb_min: torch.Tensor,
     """
     return _norm(torch.clamp_min(
         torch.maximum(aabb_min - apex, apex - aabb_max), 0.0))
+
+
+def frustum_hit_gathered(normals: torch.Tensor, apex: torch.Tensor,
+                         aabb_min: torch.Tensor,
+                         aabb_max: torch.Tensor) -> torch.Tensor:
+    """Per-tile p-vertex test on per-tile gathered AABBs.
+
+    normals (tiles, 4, 3); aabb_min/max (tiles, N, 3) -> (tiles, N) bool.
+    The refine stage of the XLA tile backend's two-level cull: each tile
+    tests only the boxes gathered from its own candidate clusters.
+    """
+    n = normals[:, :, None, :]                     # (tiles, 4, 1, 3)
+    pmin = (aabb_min - apex)[:, None]              # (tiles, 1, N, 3)
+    pmax = (aabb_max - apex)[:, None]
+    pvert = torch.where(n >= 0.0, pmax, pmin)
+    outside = (n * pvert).sum(-1) < 0.0            # (tiles, 4, N)
+    return ~outside.any(dim=1)
+
+
+def candidate_lists(hit: torch.Tensor, max_candidates: int,
+                    apex: torch.Tensor | None = None,
+                    aabb_min: torch.Tensor | None = None,
+                    aabb_max: torch.Tensor | None = None):
+    """Compact per-tile candidate lists, front-to-back.
+
+    hit: (tiles, U) bool. Returns (idx (tiles, C) int32, count (tiles,)
+    int32, entry (tiles, C) f32): the first C unit indices with hit=True
+    per tile and the true per-tile hit count (count > C is overflow).
+    With apex and AABBs the candidates are ordered by the apex->AABB
+    distance bound, which `entry` carries (+inf past the hits); without,
+    by unit index, with entry 0. Ties keep the lower index, as
+    jax.lax.top_k does (a stable sort; never torch.topk).
+    """
+    u = hit.shape[1]
+    c = min(max_candidates, u)
+    if apex is not None:
+        dist = aabb_distance(apex, aabb_min, aabb_max)            # (U,)
+        key = torch.where(hit, dist[None, :], float("inf"))
+        entry, idx = torch.sort(key, dim=1, stable=True)
+        entry, idx = entry[:, :c], idx[:, :c]
+    else:
+        # Hits first in index order, then the misses in index order.
+        _, idx = torch.sort((~hit).to(torch.int8), dim=1, stable=True)
+        idx = idx[:, :c]
+        entry = torch.zeros(idx.shape, dtype=torch.float32,
+                            device=hit.device)
+    count = hit.sum(dim=1).to(torch.int32)
+    return (idx.to(torch.int32).contiguous(), count,
+            entry.to(torch.float32).contiguous())

@@ -111,11 +111,6 @@ def shade_params(cfg: RenderConfig) -> np.ndarray:
 # ----------------------------------------------------------------------
 # Scene tables.
 
-@functools.lru_cache(maxsize=None)
-def _uniform_corners(su: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(compressed.uniform_unit_indices(su)).to(device)
-
-
 def scene_tables(scene: DeviceScene):
     """(meta, tables, options) of the trace wrappers for a scene: the
     per-cluster unit metadata, then unit_qn, or the compressed records
@@ -123,14 +118,8 @@ def scene_tables(scene: DeviceScene):
     indexed record carries its own)."""
     if not scene.compressed:
         return scene.cluster_unit_meta, scene.unit_qn, {}
-    if scene.unit_gmat is not None:
-        corners = compressed.corner_lanes(scene.unit_gmat)
-    elif scene.indexed:
-        corners = None
-    else:
-        corners = _uniform_corners(scene.sub_level, str(scene.device))
     return (scene.cluster_unit_meta, scene.unit_grid,
-            {"compressed": True, "corners": corners})
+            {"compressed": True, "corners": tiled.corner_lanes(scene)})
 
 
 # ----------------------------------------------------------------------

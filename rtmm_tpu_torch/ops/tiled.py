@@ -16,21 +16,29 @@ traced in cluster windows (cluster_window, trace_windowed_clusters): each
 window takes the next kc nearest clusters of every tile, and the kernel
 carries the running best hit from window to window.
 
-(The JAX package's XLA tile backend — candidate windows, trace_candidate,
-render_tiled — lives in the same module there; it is not ported yet.)
+The XLA tile backend (the JAX package's "tile" pipeline, and the primary
+trace of the path tracer's `grouped` engine) lives here too, kernel-free:
+candidate_window refines each window's clusters to a front-to-back unit
+list per tile, trace_candidate runs one candidate slot of every tile as a
+batched matrix product of the ray rows with the unit's per-frame table
+(float32; TF32 stays off), and xla_trace_frame / render_tiled drive the
+windows. Its semantics are the shipped ones of the JAX package: w-form
+acceptance, no det guard, the p-form t-window.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from . import culling, intersect, raygen
+from . import _f32, compressed, culling, intersect, raygen, shading
 
 BIG = 1e30
 TILE = culling.TILE_H * culling.TILE_W
+UPC = culling.UNITS_PER_CLUSTER
 
 
 def padded_size(width: int, height: int) -> tuple[int, int]:
@@ -51,6 +59,12 @@ class FrameInputs(NamedTuple):
     # (6,) inflated scene AABB [min xyz, max xyz] (scene_exit_aabb) — the
     # kernel's per-ray reach bound for rays that still miss everything.
     scene_aabb: torch.Tensor
+    # XLA tile backend only (need_q_frame): unit_qn with this frame's
+    # t_num in row 7 of the t block, and t_num (U, LPU) itself. None on the
+    # kernel paths (the kernel forms t_num per visit) and for compressed
+    # scenes (trace_candidate derives the table per candidate).
+    q_frame: torch.Tensor | None = None
+    t_num: torch.Tensor | None = None
 
 
 def scene_exit_aabb(scene: DeviceScene) -> torch.Tensor:
@@ -98,12 +112,16 @@ def recentered_raymat(raymat: torch.Tensor,
 
 def build_frame_inputs(scene: DeviceScene, inv_view_proj,
                        cfg: RenderConfig,
-                       need_rays: bool = True) -> FrameInputs:
+                       need_rays: bool = True,
+                       need_q_frame: bool = False) -> FrameInputs:
     """Raygen + the coarse (cluster-level) cull, on the scene's device.
 
     need_rays=False skips raygen and the ray-matrix build (raymat/dirs
     come back None) — the trace kernel generates its rays in-kernel from
-    the inv-view-proj scalars of the frustum pack.
+    the inv-view-proj scalars of the frustum pack. need_q_frame=True also
+    builds the XLA tile backend's per-frame table q_frame (a copy of
+    unit_qn; compressed scenes have none). The kernel paths leave it off,
+    which is why the default differs from the JAX package's.
     """
     dev = scene.device
     width, height = cfg.width, cfg.height
@@ -137,8 +155,15 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
              + oa[..., 2] * dirs[..., 2])
         raymat = torch.cat(
             [dirs, m, s[..., None], torch.ones_like(s)[..., None]], dim=-1)
+    q_frame = t_num = None
+    if need_q_frame and not scene.compressed:
+        # t_num = (a-c).n - e2.w2 — ray-independent, apex-dependent.
+        t_num = frame_t_num(scene, apex)                      # (U, LPU)
+        lpu = scene.leaves_per_unit
+        q_frame = scene.unit_qn.clone()
+        q_frame[:, 7, 3 * lpu:4 * lpu] = t_num
     return FrameInputs(raymat, dirs, apex, normals, cluster_hit,
-                       sub_normals, scene_exit_aabb(scene))
+                       sub_normals, scene_exit_aabb(scene), q_frame, t_num)
 
 
 def frustum_pack_len(n_sub: int, with_raygen: bool = False,
@@ -271,3 +296,214 @@ def trace_windowed_clusters(scene: DeviceScene, fi: FrameInputs,
         active = remaining.any(dim=1) & (worst >= bound)
         remaining = remaining & active[:, None]
     return best_t, best_n, windows
+
+
+# ----------------------------------------------------------------------
+# The XLA tile backend (kernel-free): candidate windows of units.
+
+def candidate_window(scene: DeviceScene, apex: torch.Tensor,
+                     normals: torch.Tensor, remaining: torch.Tensor,
+                     kc: int):
+    """Build one unit-level candidate window from the nearest remaining
+    clusters of each tile.
+
+    remaining: (tiles, C) bool — clusters hit by the tile frustum and not
+    yet processed. Selects (up to) the kc nearest, refines their units
+    with the tile's own frustum, and sorts the survivors front-to-back by
+    the apex->AABB entry bound (a stable sort: equal keys keep unit
+    order, as lax.sort_key_val does).
+
+    Returns (cand (tiles, kc*UPC) int32, count (tiles,) int32, entry
+    (tiles, kc*UPC) f32 ascending with +inf tail, new_remaining,
+    next_bound (tiles,) f32 — the nearest entry bound of any tile's
+    unselected cluster).
+    """
+    n_tiles = remaining.shape[0]
+    cl_dist = culling.aabb_distance(apex, scene.cluster_aabb_min,
+                                    scene.cluster_aabb_max)          # (C,)
+    cidx, sel, _, new_remaining, next_bound = _select_nearest_clusters(
+        cl_dist, remaining, kc)
+    kc = cidx.shape[1]
+    units = (cidx.to(torch.int64)[..., None] * UPC
+             + torch.arange(UPC, device=cidx.device)[None, None]
+             ).reshape(n_tiles, kc * UPC)
+    umin = scene.unit_aabb_min[units]                     # (tiles, n, 3)
+    umax = scene.unit_aabb_max[units]
+    uhit = culling.frustum_hit_gathered(normals, apex, umin, umax)
+    uhit &= scene.unit_valid[units]
+    uhit &= torch.repeat_interleave(sel, UPC, dim=1)
+    udist = culling.aabb_distance(apex, umin, umax)
+    dkey = torch.where(uhit, udist, float("inf"))
+    entry, order = torch.sort(dkey, dim=1, stable=True)
+    cand = torch.gather(units, 1, order)
+    count = uhit.sum(dim=1).to(torch.int32)
+    return (cand.to(torch.int32), count, entry.to(torch.float32),
+            new_remaining, next_bound)
+
+
+def trace_windowed(scene: DeviceScene, fi: FrameInputs, cfg: RenderConfig,
+                   trace_window: Callable, init_t: torch.Tensor, init_n):
+    """Drive trace_window over candidate windows until every tile is done.
+
+    trace_window(cand, count, entry, best_t, best_n) -> (best_t, best_n)
+    folds one window's candidates into the running closest hit; best_t is
+    (tiles, TILE) along-ray t (BIG = miss).
+
+    A tile stays active while it has unprocessed clusters AND some ray
+    could still improve: entry bounds are apex-relative, so a hit converts
+    via t_apex = t + s, and a miss keeps the tile's worst at BIG (no early
+    exit while any ray misses). One host sync per window. Returns
+    (best_t, best_n, number of windows)."""
+    kc = max(1, min(cfg.clusters_per_window, fi.cluster_hit.shape[1]))
+    s_apex = fi.raymat[..., 6]                            # (tiles, TILE)
+    active = fi.cluster_hit.any(dim=1)
+    remaining = fi.cluster_hit & active[:, None]
+    best_t, best_n = init_t, init_n
+    windows = 0
+    while bool(active.any()):
+        cand, count, entry, remaining, bound = candidate_window(
+            scene, fi.apex, fi.normals, remaining, kc)
+        best_t, best_n = trace_window(cand, count, entry, best_t, best_n)
+        windows += 1
+        worst = torch.where(best_t < BIG, best_t + s_apex,
+                            BIG).amax(dim=1)
+        active = remaining.any(dim=1) & (worst >= bound)
+        remaining = remaining & active[:, None]
+    return best_t, best_n, windows
+
+
+def candidate_counts(scene: DeviceScene, inv_view_proj,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """(tiles,) exact per-tile unit-candidate counts (observability: the
+    windows the trace would consume without early exit)."""
+    fi = build_frame_inputs(scene, inv_view_proj, cfg)
+    kc = max(1, min(cfg.clusters_per_window, fi.cluster_hit.shape[1]))
+    remaining = fi.cluster_hit
+    total = torch.zeros(remaining.shape[0], dtype=torch.int32,
+                        device=remaining.device)
+    while bool(remaining.any()):
+        _, count, _, remaining, _ = candidate_window(
+            scene, fi.apex, fi.normals, remaining, kc)
+        total = total + count
+    return total
+
+
+def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
+                    unit: torch.Tensor, in_range: torch.Tensor,
+                    cfg: RenderConfig, apex=None):
+    """One candidate slot for a batch of tiles.
+
+    raymat: (nt, TILE, 8); unit: (nt,) int; in_range: (nt,) bool. Returns
+    (t (nt, TILE), normal (nt, TILE, 3) unnormalised, summed over
+    leaves that tie for the closest t).
+
+    The Möller-Trumbore numerators are one batched float32 product of the
+    recentered ray rows with the unit's table (and a w column block
+    (det - u) - v built on the table), then the unguarded reciprocal, the
+    w-form acceptance and the p-form t-window (p = t + s against [t_min +
+    s, t_max + s], the upper side applied to the leaf minimum). Compressed
+    scenes (q_frame None) derive the table per candidate from the unit's
+    record.
+    """
+    lpu = scene.leaves_per_unit
+    unit = unit.to(torch.int64)
+    centers = unit_centers(scene)[unit]                   # (nt, 3)
+    if scene.compressed:
+        q, nrm = compressed.derive_q(scene.unit_grid[unit], apex, centers,
+                                     corner_lanes(scene))
+    else:
+        q = q_frame[unit][..., :4 * lpu]                  # (nt, 8, 4*LPU)
+        nrm = scene.unit_nrm[unit]                        # (nt, LPU, 3)
+    q = torch.cat([q, (q[..., 0 * lpu:1 * lpu] - q[..., 1 * lpu:2 * lpu])
+                   - q[..., 2 * lpu:3 * lpu]], dim=-1)
+    out = torch.bmm(recentered_raymat(raymat, centers), q)  # (nt, TILE, 5L)
+    det = out[..., 0 * lpu:1 * lpu]
+    inv = _f32.rdiv(1.0, det)
+    u = out[..., 1 * lpu:2 * lpu] * inv
+    v = out[..., 2 * lpu:3 * lpu] * inv
+    ww = out[..., 4 * lpu:5 * lpu] * inv
+    s = raymat[..., 6:7]
+    p = out[..., 3 * lpu:4 * lpu] * inv
+    ok = ((torch.minimum(torch.minimum(u, v), ww) >= -intersect.MT_UV_EPS)
+          & (p >= cfg.t_min + s) & in_range[:, None, None])
+    p = torch.where(ok, p, BIG)
+    pb = p.amin(dim=2)                                    # (nt, TILE)
+    tb = torch.where(pb <= cfg.t_max + s[..., 0], pb - s[..., 0], BIG)
+    # Ties sum (normalised again before shading); invalid leaves hold p ==
+    # BIG and match only on all-miss lanes, whose tb == BIG never wins.
+    onehot = (p <= pb[..., None]).to(torch.float32)
+    nb = torch.bmm(onehot, nrm)                           # (nt, TILE, 3)
+    return tb, nb
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform_corners(su: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(compressed.uniform_unit_indices(su)).to(device)
+
+
+def corner_lanes(scene: DeviceScene):
+    """(3, LPU) int32 corner lanes shared by every record of a compressed
+    scene (its one topology's gather matrix, or the all-present one), or
+    None when each indexed record carries its own (rows 3-5)."""
+    if scene.unit_gmat is not None:
+        return compressed.corner_lanes(scene.unit_gmat)
+    if scene.indexed:
+        return None
+    return _uniform_corners(scene.sub_level, str(scene.device))
+
+
+def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
+                    cfg: RenderConfig):
+    """Trace one frame's primary rays with the XLA-backend windows.
+
+    Tiles go in chunks of cfg.tile_chunk; a window's candidate slots run
+    up to the chunk's largest count (the slots past every tile's count
+    fold nothing, so stopping there is exact). Returns (best_t (tiles,
+    TILE) with BIG = miss, best_n (tiles, TILE, 3) unnormalised)."""
+    n_tiles = fi.raymat.shape[0]
+    tile_chunk = max(1, min(n_tiles, cfg.tile_chunk))
+    if n_tiles % tile_chunk:
+        tile_chunk = n_tiles
+
+    def trace_window(cand, count, entry, best_t, best_n):
+        bt_out, bn_out = [], []
+        for c0 in range(0, n_tiles, tile_chunk):
+            sl = slice(c0, c0 + tile_chunk)
+            rm, cnd, cnt = fi.raymat[sl], cand[sl], count[sl]
+            bt, bn = best_t[sl], best_n[sl]
+            for c in range(min(cand.shape[1], int(cnt.max()))):
+                tb, nb = trace_candidate(scene, rm, fi.q_frame, cnd[:, c],
+                                         c < cnt, cfg, apex=fi.apex)
+                take = tb < bt
+                bt = torch.where(take, tb, bt)
+                bn = torch.where(take[..., None], nb, bn)
+            bt_out.append(bt)
+            bn_out.append(bn)
+        return torch.cat(bt_out), torch.cat(bn_out)
+
+    dev = fi.raymat.device
+    init_t = torch.full((n_tiles, TILE), BIG, dtype=torch.float32,
+                        device=dev)
+    init_n = torch.zeros((n_tiles, TILE, 3), dtype=torch.float32,
+                         device=dev)
+    best_t, best_n, _ = trace_windowed(scene, fi, cfg, trace_window, init_t,
+                                       init_n)
+    return best_t, best_n
+
+
+def render_tiled(scene: DeviceScene, inv_view_proj,
+                 cfg: RenderConfig) -> torch.Tensor:
+    """Render one frame through the XLA tile backend (the CLI's
+    --pipeline tile). Returns (H, W, 3) float32 on the scene's device."""
+    width, height = cfg.width, cfg.height
+    pw, ph = padded_size(width, height)
+    tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
+    fi = build_frame_inputs(scene, inv_view_proj, cfg, need_q_frame=True)
+    best_t, best_n = xla_trace_frame(scene, fi, cfg)
+    hit = best_t < BIG
+    nrm = best_n / torch.clamp_min(culling._norm(best_n, keepdim=True),
+                                   1e-20)
+    colors = shading.shade_or_miss(hit, nrm, -fi.dirs, cfg)
+    img = (colors.reshape(ty, tx, culling.TILE_H, culling.TILE_W, 3)
+           .permute(0, 2, 1, 3, 4).reshape(ph, pw, 3))
+    return img[:height, :width]

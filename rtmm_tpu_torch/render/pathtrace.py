@@ -1,0 +1,438 @@
+"""Path-traced multi-bounce rendering with ray compaction (bench config 5).
+
+The reference is a primary-ray-only renderer; this extends the same
+traversal to a Monte-Carlo path tracer:
+
+  * a wavefront bounce loop over dense ray buffers (no recursion);
+  * a Lambertian surface with the reference's material colour, lit by the
+    reference's four directional lights plus the miss colour as a constant
+    environment term;
+  * cosine-weighted hemisphere sampling with randoms hashed from (seed,
+    bounce, sample, pixel) (utils/threefry.py: jax.random's threefry, bit
+    for bit), so a ray's randoms do not depend on the order rays are
+    sorted in, and every engine renders the same image;
+  * bounce 0 is the camera rays: coherent, so they ride the primary
+    pipeline (the tile-trace kernel's raw mode, or the XLA tile backend)
+    once per frame, their shading shared by every sample;
+  * secondary bounces keep the per-ray state (origin, direction,
+    radiance, lane index) in sorted order across bounces: each bounce pays
+    one stable sort into direction-octant / origin-cell groups (dead rays
+    sink to the back), and only the final radiance is un-permuted, once;
+  * all samples ride one merged pipeline of spp x rays lanes; after a
+    bounce's sort the state is cut to a per-bounce lane cap when the live
+    rays fit it (the cut-off tail is dead and its radiance final), so
+    later bounces pay for the live rays, not the buffer.
+
+Secondary engines: "pallas" = the grouped trace kernel (ops/group_trace.py,
+csrc/group_trace.cu; its plain version on CPU tensors) with the tile
+kernel's raw or windowed mode for the primaries; "grouped" = the
+kernel-free engine (ops/grouped.py, with the XLA tile backend for the
+primaries); "auto" = pallas on a CUDA scene, grouped on a CPU scene. The
+per-ray engine ("perray") is not ported yet.
+
+The JAX package's render/pathtrace.py is the reference. Its TPU A/B knob
+RTMM_PT_HASHRAND (pre-drawn randoms) is not ported: the randoms are
+always hash-drawn, its default.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..models.scene import DeviceScene
+from ..ops import (_f32, culling, group_trace, grouped, raygen, shading,
+                   tile_trace, tiled)
+from ..utils import threefry
+
+BIG = 1e30
+GROUP = grouped.GROUP
+ENGINES = ("auto", "pallas", "grouped", "perray")
+
+
+@dataclasses.dataclass(frozen=True)
+class PathTraceConfig:
+    bounces: int = 3
+    samples_per_pixel: int = 4
+    seed: int = 0
+    # Rays per chunk of the per-ray engine (not ported yet; kept so that
+    # configurations carry over).
+    ray_chunk: int = 8192
+    # t_max of bounce rays (>= the scene diagonal is lossless: bounce
+    # origins lie on scene geometry). PathTracer fills it from the scene
+    # bounds; it shrinks the reach boxes of incoherent ray groups from
+    # t_max-sized to scene-sized.
+    bounce_t_max: float | None = None
+    engine: str = "auto"
+
+
+def _direct_light(normal: torch.Tensor, albedo: torch.Tensor,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Diffuse direct lighting from the four reference lights
+    (closesthit.hlsl:70-81), Lambertian only, Reinhard tone-mapped."""
+    lo = torch.zeros(normal.shape[:-1] + (3,), dtype=torch.float32,
+                     device=normal.device)
+    for ldir, lscale in zip(shading.LIGHT_DIRS, shading.LIGHT_SCALE):
+        n_dot_l = torch.clamp_min(normal[..., 0] * ldir[0]
+                                  + normal[..., 1] * ldir[1]
+                                  + normal[..., 2] * ldir[2], 0.0)
+        radiance = cfg.light_intensity * lscale
+        lo = lo + albedo * (radiance / np.pi) * n_dot_l[..., None]
+    return lo / (lo + 1.0)
+
+
+def _cosine_dir(u: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted hemisphere direction around `normal` from uniform
+    u (..., 2)."""
+    r = torch.sqrt(u[..., 0])
+    phi = (2.0 * np.pi) * u[..., 1]
+    x = r * torch.cos(phi)
+    y = r * torch.sin(phi)
+    z = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
+    # Orthonormal basis around the normal.
+    up = torch.where((torch.abs(normal[..., 2:3]) < 0.9),
+                     shading._vec3((0.0, 0.0, 1.0), normal),
+                     shading._vec3((1.0, 0.0, 0.0), normal))
+    t = culling._cross(up, normal)
+    t = t / torch.clamp_min(torch.sqrt(t[..., 0] * t[..., 0]
+                                       + t[..., 1] * t[..., 1]
+                                       + t[..., 2] * t[..., 2]),
+                            1e-20)[..., None]
+    b = culling._cross(normal, t)
+    return x[..., None] * t + y[..., None] * b + z[..., None] * normal
+
+
+def _cap_schedule(mtotal: int, engine: str, n_bounce: int) -> list[int]:
+    """Per-bounce lane caps of the compacted secondary pipeline (entry b-1
+    is the cap applied after bounce b's sort; 0 = no cut at that bounce).
+
+    Live counts collapse across bounces (config 5 at 512^2 x 2 spp: a
+    minority of the 524k lanes live entering bounce 1, a few thousand
+    entering bounce 2), so the default is mtotal/4 at bounce 1, then /4
+    per further bounce (floored at 4*GROUP). A bounce whose live rays
+    overflow its cap runs at full size, so a cap is a speed knob, never a
+    correctness one. RTMM_PT_CAP overrides bounce 1 (0 disables every
+    cut); RTMM_PT_CAPS='a,b,...' overrides the whole schedule."""
+    if engine not in ("pallas", "grouped") or n_bounce < 1:
+        return [0] * n_bounce
+    env_s = os.environ.get("RTMM_PT_CAPS")
+    if env_s:
+        caps = [int(x) for x in env_s.split(",")]
+        caps += [caps[-1]] * (n_bounce - len(caps))
+        caps = caps[:n_bounce]
+    else:
+        env = os.environ.get("RTMM_PT_CAP")
+        c1 = int(env) if env is not None else mtotal // 4
+        if c1 <= 0:
+            return [0] * n_bounce
+        caps = [max(c1 // (4 ** b), 4 * GROUP) for b in range(n_bounce)]
+    caps = [(c + GROUP - 1) // GROUP * GROUP if c > 0 else 0 for c in caps]
+    return [c if 0 < c < mtotal else 0 for c in caps]
+
+
+def _normalize_flip(bn: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Normalise an (unnormalised, reference-style) geometric normal and
+    flip it toward the incoming ray."""
+    nn = torch.sqrt(bn[:, 0] * bn[:, 0] + bn[:, 1] * bn[:, 1]
+                    + bn[:, 2] * bn[:, 2])
+    nrm = bn / torch.clamp_min(nn, 1e-20)[:, None]
+    facing = (nrm[:, 0] * dirs[:, 0] + nrm[:, 1] * dirs[:, 1]
+              + nrm[:, 2] * dirs[:, 2]) > 0.0
+    return torch.where(facing[:, None], -nrm, nrm)
+
+
+def _resolve_engine(scene: DeviceScene, engine: str) -> str:
+    if engine not in ENGINES:
+        raise ValueError(f"unknown path-trace engine {engine!r}; one of "
+                         f"{ENGINES}")
+    if engine == "perray":
+        raise NotImplementedError(
+            "the per-ray engine is not yet ported to rtmm_tpu_torch "
+            "(ROADMAP queue 1 item 10); use engine 'pallas' or 'grouped'")
+    if engine == "auto":
+        return "pallas" if scene.device.type == "cuda" else "grouped"
+    return engine
+
+
+def _trace_primary(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
+                   engine: str):
+    """Bounce-0 trace through the primary (tile-frustum) pipeline.
+
+    pallas: the tile-trace kernel's raw mode with a ray-matrix input (one
+    launch) when the scene has at most kernel_clusters_per_window
+    clusters, else its windowed mode; grouped: the XLA tile backend.
+    Returns (t (n,), hit (n,), normal (n, 3) unnormalised) in raster
+    order; t is relative to the raygen near-plane origins and t_max where
+    the ray misses."""
+    width, height = cfg.width, cfg.height
+    pw, ph = tiled.padded_size(width, height)
+    tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
+    if engine == "pallas":
+        fi, frus, raymat = tile_trace.ray_frame_inputs(scene, inv_view_proj,
+                                                       cfg)
+        meta, tables, opts = tile_trace.scene_tables(scene)
+        kc = tile_trace.clusters_per_window(scene, cfg)
+        if scene.num_clusters <= kc:
+            lists = tile_trace.cluster_lists(scene, fi, kc)
+            out, _, _ = tile_trace.trace_raw(*lists, frus, meta, tables, cfg,
+                                             raymat=raymat, **opts)
+            best_t, best_n = out[:, 0], out[:, 1:4].transpose(1, 2)
+        else:
+            n_tiles = frus.shape[0]
+            dev = frus.device
+
+            def trace_window(ccand, ccount, centry, best_t, rest):
+                t, n, vis, elig = tile_trace.trace_windowed(
+                    ccand, ccount, centry, frus, raymat, (best_t, *rest),
+                    meta, tables, cfg, **opts)
+                return t, (n, vis, elig)
+
+            init_t = torch.full((n_tiles, tiled.TILE), BIG,
+                                dtype=torch.float32, device=dev)
+            init_rest = (torch.zeros((n_tiles, 3, tiled.TILE),
+                                     dtype=torch.float32, device=dev),
+                         torch.zeros(n_tiles, dtype=torch.int32, device=dev),
+                         torch.zeros(n_tiles, dtype=torch.int32, device=dev))
+            best_t, (n, _, _), _ = tiled.trace_windowed_clusters(
+                scene, fi, trace_window, init_t, init_rest, kc)
+            best_n = n.transpose(1, 2)
+    else:
+        ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
+                              device=scene.device)
+        fi = tiled.build_frame_inputs(scene, ivp, cfg, need_q_frame=True)
+        best_t, best_n = tiled.xla_trace_frame(scene, fi, cfg)
+
+    def from_tiles(x):
+        k = x.shape[-1]
+        return (x.reshape(ty, tx, culling.TILE_H, culling.TILE_W, k)
+                .permute(0, 2, 1, 3, 4).reshape(ph, pw, k)
+                [:height, :width].reshape(-1, k))
+
+    t = from_tiles(best_t[..., None])[:, 0]
+    bn = from_tiles(best_n)
+    hit = t < BIG
+    return torch.where(hit, t, cfg.t_max), hit, bn
+
+
+def _rand2(key0, bounce: int, lanes: torch.Tensor, total: int):
+    """(n, 2) randoms of bounce `bounce` for global lanes g = sample *
+    total + pixel: uniform(fold_in(fold_in(fold_in(key0, bounce),
+    g // total), g % total), (2,))."""
+    kb = threefry.fold_in(key0, bounce)
+    g = lanes.to(torch.int64)
+    k = threefry.fold_in(threefry.fold_in(kb, g // total), g % total)
+    return threefry.uniform2(k)
+
+
+def _sort_state(scene: DeviceScene, o, d, alive, rad, idx):
+    """One stable sort of the secondary state by group key (live rays by
+    octant and origin cell, dead rays at the back)."""
+    skey = torch.where(alive, grouped._sort_key(o, d, scene),
+                       grouped.DEAD_KEY)
+    skey, order = torch.sort(skey, stable=True)
+    return (o[order], d[order], skey < grouped.DEAD_KEY, rad[order],
+            idx[order])
+
+
+def _albedo_power(albedo: np.ndarray, bounce: int) -> np.ndarray:
+    """albedo ** bounce in float32 by binary exponentiation, the product
+    order of jax.lax.integer_pow (x**3 = x * (x * x))."""
+    acc, x, y = None, albedo.astype(np.float32), bounce
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else (acc * x).astype(np.float32)
+        y >>= 1
+        if y > 0:
+            x = (x * x).astype(np.float32)
+    return np.ones(3, np.float32) if acc is None else acc
+
+
+@contextlib.contextmanager
+def _stage(timings, name: str):
+    """CUDA-event span of one stage, kept in timings[name] (a list of
+    (start, end) event pairs) when timings is a dict; nothing otherwise."""
+    if timings is None:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    timings.setdefault(name, []).append((start, end))
+
+
+def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
+               pt: PathTraceConfig, timings: dict | None = None):
+    """Render one frame. Returns (image (H, W, 3) f32, stats) on the
+    scene's device: stats["live_rays_per_bounce"] (bounces + 1,) f32 —
+    live rays after each bounce, averaged over samples (index 0 the
+    primaries) — and the engine's overflow counts (see
+    _overflow_stat_key), (bounces + 1,) int32.
+
+    timings (a dict, CUDA scenes only): CUDA-event spans of the stages —
+    "primary", "sort b", "trace b" (the engine's secondary trace of bounce
+    b, its window loop included), "randoms", "shading"."""
+    height, width = cfg.height, cfg.width
+    engine = _resolve_engine(scene, pt.engine)
+    dev = scene.device
+    with _stage(timings, "primary"):
+        o0, d0 = raygen.generate_rays(inv_view_proj, width, height,
+                                      device=dev)
+        t0, hit0, bn0 = _trace_primary(scene, inv_view_proj, cfg, engine)
+    n = o0.shape[0]
+    n_bounce = pt.bounces
+    cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
+                  if pt.bounce_t_max else cfg)
+    albedo_np = np.asarray(cfg.mesh_color, np.float32)
+    albedo = torch.from_numpy(albedo_np).to(dev)
+    bg_np = np.asarray(cfg.background, np.float32)
+    bg = torch.from_numpy(bg_np).to(dev)
+    key0 = threefry.key(pt.seed, dev)
+    spp = pt.samples_per_pixel
+    ovf_key = _overflow_stat_key(engine)
+
+    with _stage(timings, "shading"):
+        nrm0 = _normalize_flip(bn0, d0)
+        radiance0 = torch.where(hit0[:, None],
+                                _direct_light(nrm0, albedo, cfg), bg)
+    live0 = hit0.sum().to(torch.int32)
+    if n_bounce == 0:
+        # Primary-only tracing: no secondary state exists.
+        return radiance0.reshape(height, width, 3), {
+            "live_rays_per_bounce": live0[None].to(torch.float32),
+            ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
+
+    borigin0 = o0 + t0[:, None] * d0 + 1e-4 * nrm0
+    # Pad the per-ray state to a GROUP multiple (dead pad lanes), then
+    # tile it over the samples: lane g = sample * total + pixel.
+    pad = (-n) % GROUP
+    total = n + pad
+    mtotal = spp * total
+
+    def tile_s(x, value=0.0):
+        x = torch.cat([x, torch.full((pad,) + x.shape[1:], value,
+                                     dtype=x.dtype, device=dev)])
+        return x.repeat((spp,) + (1,) * (x.dim() - 1))
+
+    nrm0m = tile_s(nrm0)
+    hit0m = tile_s(hit0, False)
+    idx = torch.arange(mtotal, dtype=torch.int32, device=dev)
+    with _stage(timings, "randoms"):
+        u1 = _rand2(key0, 0, idx, total)
+    with _stage(timings, "shading"):
+        d1 = _cosine_dir(u1, nrm0m)
+    o = tile_s(borigin0)
+    d = torch.where(hit0m[:, None], d1, tile_s(d0, 1.0))
+    alive = hit0m
+    rad = torch.zeros((mtotal, 3), dtype=torch.float32, device=dev)
+
+    caps = _cap_schedule(mtotal, engine, n_bounce)
+    tails = []          # (rad, idx) of the dead tails cut off, in order
+    live_counts, overflows = [], []
+    for bounce in range(1, n_bounce + 1):
+        with _stage(timings, f"sort {bounce}"):
+            o, d, alive, rad, idx = _sort_state(scene, o, d, alive, rad,
+                                                idx)
+        cap = caps[bounce - 1]
+        # The cut is a host decision (the JAX package's lax.cond): one
+        # sync per bounce. Past the cap every lane is dead after the sort,
+        # so its radiance is final and it is set aside until the unsort.
+        if 0 < cap < o.shape[0] and int(alive.sum()) <= cap:
+            tails.append((rad[cap:], idx[cap:]))
+            o, d, alive, rad, idx = (x[:cap] for x in (o, d, alive, rad,
+                                                       idx))
+        with _stage(timings, f"trace {bounce}"):
+            trace = (group_trace.trace_sorted if engine == "pallas"
+                     else grouped.trace_sorted)
+            bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
+                                 d.reshape(-1, GROUP, 3),
+                                 alive.reshape(-1, GROUP), cfg_bounce)
+        overflows.append(int(ovf))
+        bt = bt.reshape(-1)
+        bn3 = bn3.reshape(-1, 3)
+        with _stage(timings, "shading"):
+            hit = alive & (bt < BIG) & (bt > 0.0)
+            # Throughput of every lane read at this bounce: albedo ** b,
+            # a constant (the reference's single material).
+            tp_b = torch.from_numpy(_albedo_power(albedo_np, bounce)).to(dev)
+            nrm = _normalize_flip(bn3, d)
+            escaped = alive & ~hit
+            rad = rad + torch.where(escaped[:, None], tp_b * bg, 0.0)
+            direct = _direct_light(nrm, albedo, cfg)
+            rad = rad + torch.where(hit[:, None], tp_b * direct, 0.0)
+        alive = hit
+        live_counts.append(alive.sum().to(torch.int32))
+        if bounce == n_bounce:
+            break
+        with _stage(timings, "randoms"):
+            ub = _rand2(key0, bounce, idx, total)
+        with _stage(timings, "shading"):
+            hit_pos = o + torch.where(hit, bt, 0.0)[:, None] * d
+            new_dir = _cosine_dir(ub, nrm)
+            o = hit_pos + 1e-4 * nrm
+            d = torch.where(alive[:, None], new_dir, d)
+
+    # Undo the permutations: idx is a permutation of [0, mtotal).
+    rad = torch.cat([rad] + [t[0] for t in reversed(tails)])
+    idx = torch.cat([idx] + [t[1] for t in reversed(tails)])
+    out = torch.empty_like(rad)
+    out[idx.to(torch.int64)] = rad
+    per_sample = out.reshape(spp, total, 3)[:, :n]
+    radiance = per_sample[0]
+    for s in range(1, spp):
+        radiance = radiance + per_sample[s]
+    image = (radiance0 + _f32.div(radiance, float(spp))).reshape(
+        height, width, 3)
+    live = torch.stack([live0 * spp] + live_counts).to(torch.float32)
+    stats = {
+        "live_rays_per_bounce": _f32.div(live, float(spp)),
+        # Index 0 is bounce 0, the exact primary trace: always 0.
+        ovf_key: torch.tensor([0] + overflows, dtype=torch.int32,
+                              device=dev),
+    }
+    return image, stats
+
+
+def _overflow_stat_key(engine: str) -> str:
+    """Stats key of each engine's third trace_sorted return value — the
+    engines report different things:
+
+    * "grouped": ``overflow_groups_per_bounce`` — groups whose candidate
+      count exceeded the capped candidate list; their farthest candidates
+      were dropped, so a nonzero value means possible misses.
+    * "pallas": ``extra_window_passes_per_bounce`` — cluster windows
+      beyond the first that groups consumed. Nothing is truncated; the
+      value is a work signal only.
+    """
+    return ("extra_window_passes_per_bounce" if engine == "pallas"
+            else "overflow_groups_per_bounce")
+
+
+class PathTracer:
+    """Path tracer for one scene: render(inv_view_proj) -> (image, stats).
+    Fills bounce_t_max from the scene's cluster bounds (the diagonal x
+    1.05 + 1e-3, capped at cfg.t_max)."""
+
+    def __init__(self, scene: DeviceScene, cfg: RenderConfig | None = None,
+                 pt: PathTraceConfig | None = None):
+        self.scene = scene
+        self.cfg = cfg or RenderConfig()
+        self.pt = pt or PathTraceConfig()
+        _resolve_engine(scene, self.pt.engine)
+        if self.pt.bounce_t_max is None:
+            lo = scene.cluster_aabb_min.cpu().numpy()
+            hi = scene.cluster_aabb_max.cpu().numpy()
+            valid = scene.cluster_valid.cpu().numpy()
+            diag = float(np.linalg.norm(hi[valid].max(0) - lo[valid].min(0)))
+            self.pt = dataclasses.replace(
+                self.pt, bounce_t_max=min(self.cfg.t_max,
+                                          diag * 1.05 + 1e-3))
+
+    def render(self, inv_view_proj, timings: dict | None = None):
+        return path_trace(self.scene, inv_view_proj, self.cfg, self.pt,
+                          timings)

@@ -17,15 +17,21 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from ..ops import tile_trace
+from ..ops import tile_trace, tiled
 
 
 def render_image(scene: DeviceScene, inv_view_proj,
                  cfg: RenderConfig) -> torch.Tensor:
     """Render one frame on the scene's device. Returns (H, W, 3) float32
-    in [0, 1]: the tile-trace kernel on the card (fused, or windowed for
-    scenes over kernel_clusters_per_window clusters), its plain version on
-    the CPU."""
+    in [0, 1]. cfg.pipeline "auto" / "pallas": the tile-trace kernel on the
+    card (fused, or windowed for scenes over kernel_clusters_per_window
+    clusters), its plain version on the CPU; "tile": the kernel-free XLA
+    tile backend (ops/tiled.py)."""
+    if cfg.pipeline == "tile":
+        return tiled.render_tiled(scene, inv_view_proj, cfg)
+    if cfg.pipeline not in ("auto", "pallas"):
+        raise NotImplementedError(
+            f"pipeline {cfg.pipeline!r} is not yet ported to rtmm_tpu_torch")
     return tile_trace.render_frame(scene, inv_view_proj, cfg)
 
 

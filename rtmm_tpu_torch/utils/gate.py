@@ -12,16 +12,19 @@ from __future__ import annotations
 import torch
 
 
-def image_gate(a: torch.Tensor, b: torch.Tensor) -> dict:
+def image_gate(a: torch.Tensor, b: torch.Tensor, per: int = 2000,
+               big_per: int = 50000) -> dict:
     """Compare two (H, W, 3) renders. Returns the counts, the budgets
-    max(64, W*H // 2000) and max(16, W*H // 50000), the max pixel
-    difference, and "ok" when both counts are within budget."""
+    max(64, W*H // per) and max(16, W*H // big_per), the max pixel
+    difference, and "ok" when both counts are within budget. The path
+    tracer's gate (bench.py:583-584) takes per = big_per = 500: a bounce
+    hit that flips at a leaf edge repaints its whole pixel."""
     h, w = a.shape[0], a.shape[1]
     d = (a.float() - b.float()).abs().amax(dim=-1)
     npix = int((d > 4.0 / 255.0).sum())
     nbig = int((d > 0.25).sum())
-    budget = max(64, (w * h) // 2000)
-    big_budget = max(16, (w * h) // 50000)
+    budget = max(64, (w * h) // per)
+    big_budget = max(16, (w * h) // big_per)
     return {"npix": npix, "nbig": nbig, "budget": budget,
             "big_budget": big_budget, "maxdiff": float(d.max()),
             "ok": npix <= budget and nbig <= big_budget}

@@ -1,7 +1,9 @@
-"""The trace kernel against its plain PyTorch version, on the card, in
-every mode: fused (precomputed and compressed tables, in-kernel raygen or
-a ray matrix), windowed (precomputed and compressed) and raw (both ray
-sources, precomputed and compressed), and the instanced frames built on it.
+"""The trace kernels against their plain PyTorch versions, on the card:
+the tile trace in every mode (fused with precomputed and compressed
+tables, in-kernel raygen or a ray matrix; windowed; raw with both ray
+sources) and the instanced frames built on it; the grouped trace (K2) on
+random ray groups over precomputed, compressed and compressed indexed
+scenes, and path-traced frames through both secondary engines.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 where there is none (the CPU runs only the plain version). On a machine
@@ -9,14 +11,17 @@ with the card and without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from rtmm_tpu_torch.config import RenderConfig
 from rtmm_tpu_torch.models import procedural, scene as scene_mod
-from rtmm_tpu_torch.ops import culling, tiled, tile_trace
+from rtmm_tpu_torch.ops import culling, group_trace, tiled, tile_trace
 from rtmm_tpu_torch.render import instances as inst_mod
+from rtmm_tpu_torch.render import pathtrace
 from rtmm_tpu_torch.utils import camera
 from rtmm_tpu_torch.utils.gate import image_gate
 
@@ -264,3 +269,131 @@ def _check_gate(a, b):
     gate = image_gate(a, b)
     print(gate)
     assert gate["ok"], gate
+
+
+# Grouped trace (K2): (mesh maker, compressed). The level-3 icosphere's
+# compressed records share one corner topology; the level-2 plane's are
+# indexed (and span several clusters).
+GROUPED = {
+    "precomputed": (lambda: procedural.make_icosphere(
+        subdivisions=1, level=3, amplitude=0.15), False),
+    "compressed_uniform": (lambda: procedural.make_icosphere(
+        subdivisions=1, level=3, amplitude=0.15), True),
+    "compressed_indexed": (lambda: procedural.make_plane(
+        grid=(12, 12), level=2, amplitude=0.2), True),
+}
+
+
+def _random_groups(g, device, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2.0, 2.0, (g, 1024, 3)).astype(np.float32)
+    d = rng.normal(size=(g, 1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    live = rng.uniform(size=(g, 1024)) < 0.6
+    return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
+            torch.from_numpy(live).to(device))
+
+
+def _hold_group(k, p):
+    """K2 against its plain version: equal visits and gated sub-groups,
+    equal hit masks; t and normals equal up to 1e-5 (exact-t ties sum
+    their normals in another order)."""
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    assert torch.equal(k[0] < 1e29, p[0] < 1e29)
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[1] - p[1]).abs().max()))
+    print(f"visits {int(k[2].sum())}, gated {int(k[3].sum())}, "
+          f"max |diff| {err:.3e}")
+    assert err <= 1e-5
+    return int(k[2].sum())
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED))
+def test_group_trace_kernel_matches_plain(cuda, name):
+    make, comp = GROUPED[name]
+    scene = scene_mod.build_device_scene(make(), compressed=comp,
+                                         device=cuda)
+    cfg = RenderConfig(kernel_clusters_per_window=1)
+    o, d, live = _random_groups(4, cuda)
+    rv, box, _, omin, omax, cl_hit = group_trace.group_inputs(
+        scene, o, d, live, cfg)
+    meta, tables, nrm, opts = group_trace.scene_tables(scene)
+    lists = group_trace._grouped_cluster_window(scene, omin, omax, cl_hit,
+                                                2)[:3]
+    t_in = torch.where(live, group_trace.BIG, 0.0)
+    n_in = torch.zeros((4, 3, 1024), device=cuda)
+    name_k = "group_trace_compressed" if comp else "group_trace"
+    before = group_trace.LAUNCHES[name_k]
+    k = group_trace.trace_group(rv, box, *lists, t_in, n_in, meta, tables,
+                                nrm, cfg, **opts)
+    torch.cuda.synchronize()
+    assert group_trace.LAUNCHES[name_k] == before + 1
+    p = group_trace.trace_group_plain(rv, box, *lists, t_in, n_in, meta,
+                                      tables, nrm, cfg, **opts)
+    assert _hold_group(k, p) > 0
+    # The whole window loop, the kernel against the same loop on the CPU
+    # scene (plain version).
+    t_k, n_k, extra_k = group_trace.trace_sorted(scene, o, d, live, cfg)
+    cpu = scene_mod.build_device_scene(make(), compressed=comp,
+                                       device="cpu")
+    t_p, n_p, extra_p = group_trace.trace_sorted(cpu, o.cpu(), d.cpu(),
+                                                 live.cpu(), cfg)
+    assert extra_k == extra_p
+    hit = t_k.cpu() < 1e29
+    assert torch.equal(hit, t_p < 1e29) and int(hit.sum()) > 50
+    assert float((t_k.cpu() - t_p).abs().max()) <= 1e-5
+    assert float((n_k.cpu() - n_p).abs().max()) <= 1e-5
+
+
+def test_group_trace_rejects_bad_input(cuda):
+    scene = _scene(0, 2, cuda)
+    cfg = RenderConfig()
+    o, d, live = _random_groups(1, cuda)
+    rv, box, _, omin, omax, cl_hit = group_trace.group_inputs(
+        scene, o, d, live, cfg)
+    meta, tables, nrm, _ = group_trace.scene_tables(scene)
+    lists = group_trace._grouped_cluster_window(scene, omin, omax, cl_hit,
+                                                1)[:3]
+    t_in = torch.zeros((1, 1024), device=cuda)
+    n_in = torch.zeros((1, 3, 1024), device=cuda)
+    with pytest.raises(ValueError):
+        group_trace.trace_group(rv, box.cpu(), *lists, t_in, n_in, meta,
+                                tables, nrm, cfg)
+    with pytest.raises(TypeError):
+        group_trace.trace_group(rv, box, lists[0].long(), *lists[1:], t_in,
+                                n_in, meta, tables, nrm, cfg)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_pathtrace_frame_on_card(cuda, compressed):
+    """One path-traced frame through the pallas engine (the tile kernel's
+    raw mode, then K2) against the grouped engine on the card and the
+    pallas engine's plain versions on the CPU."""
+    make = lambda: procedural.make_icosphere(  # noqa: E731
+        subdivisions=0, level=3, amplitude=0.1)
+    scene = scene_mod.build_device_scene(make(), compressed=compressed,
+                                         device=cuda)
+    cfg = RenderConfig(width=96, height=64, sub_frusta=8)
+    pt = pathtrace.PathTraceConfig(bounces=2, samples_per_pixel=2,
+                                   engine="pallas")
+    ivp = _ivp(96, 64)
+    group_trace.reset_launches()
+    img, stats = pathtrace.PathTracer(scene, cfg, pt).render(ivp)
+    torch.cuda.synchronize()
+    assert sum(group_trace.LAUNCHES.values()) >= 2
+    live = stats["live_rays_per_bounce"].cpu()
+    assert bool(torch.isfinite(img).all()) and live[0] > 0
+    assert bool((live[1:] <= live[:-1]).all())
+    grouped_img, gst = pathtrace.PathTracer(scene, cfg, dataclasses.replace(
+        pt, engine="grouped")).render(ivp)
+    cpu = scene_mod.build_device_scene(make(), compressed=compressed,
+                                       device="cpu")
+    plain_img, pst = pathtrace.PathTracer(cpu, cfg, pt).render(ivp)
+    for other, ost in ((grouped_img, gst), (plain_img.to(cuda), pst)):
+        diff = (img - other).abs().amax(-1)
+        print(f"over 4/255: {int((diff > 4 / 255).sum())}, live "
+              f"{live.tolist()} vs {ost['live_rays_per_bounce'].tolist()}")
+        assert int((diff > 4 / 255).sum()) <= 64
+        assert int((diff > 0.25).sum()) <= 16
+        assert float((ost["live_rays_per_bounce"].cpu() - live).abs().max()
+                     ) <= 4
