@@ -48,15 +48,18 @@ Phases (any failure raises and exits non-zero):
      8 sub-cones, 3 bounces, 2 samples per pixel), counted: PathTracer.render
      for 2 frames and a 32-frame orbit frame by frame, one raw launch (K1d)
      per frame and one grouped-trace launch (K2) per window of each bounce;
-     K2 against its plain version on frame 0's bounce-1 launch; the
-     reference's engine gate (bench.py:543-585: the pallas and grouped
+     K2 against its plain version on every launch of frame 0 (t, visits,
+     gated sub-groups and tests equal, bounce 1's visits and gated held to
+     their pins), each bounce's K2 ms beside the ms before the redesign;
+     the reference's engine gate (bench.py:543-585: the pallas and grouped
      engines on one 256x256 frame, and the grouped engine once more with
      no candidate cut, to see whether the cut explains a live-count
      difference); the lane cuts against none, bit for bit; frame, orbit,
-     stage and K2 times, K2's bound, and the grouped engine's trace of
-     the same bounce;
+     stage times, K2's bound over its tests, and the grouped engine's
+     trace of the same bounce;
  15. config 5 compressed (K1d + K1c, K2 compressed): counted frames, K2
-     against its plain version, the frame within the gate of phase 14's,
+     against its plain version on every launch of frame 0 as in phase 14,
+     the frame within the gate of phase 14's,
      MiB of both scenes.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
@@ -145,23 +148,33 @@ PLAIN_VISITS = 25000
 # and max(16, px/500) over 0.25, and live counts within 4 per bounce.
 PT_SIZE, PT_BOUNCES, PT_SPP, PT_ORBIT, PT_VERIFY = 512, 3, 2, 32, 256
 # float32 operations per (ray, leaf) of K2 that the function needs, from
-# process_unit in csrc/group_trace.cu over the q16 table's non-zero terms
-# (the ray rows are [d, o x d, o, 1]; the table is [-n | -w1 | -w2 | 0] over
-# d, [0 | e2 | -e1 | 0] over o x d, [0 | 0 | 0 | n] over o and
+# mt_pair / mt_accept in csrc/group_trace.cu over the q16 table's non-zero
+# terms (the ray rows are [d, o x d, o, 1]; the table is [-n | -w1 | -w2 |
+# 0] over d, [0 | e2 | -e1 | 0] over o x d, [0 | 0 | 0 | n] over o and
 # [0 | 0 | 0 | -e2.w2] over the ones row): det 3 terms (5 ops), u, v and
 # the w column 6 terms (11 each), t 3 products and 3 adds (6: the ones
 # row needs no product); then one division, four quotients, four window
-# compares, one select, one running-minimum compare. The kernel runs all
-# five 10-term dots (106 operations), zeros included. Per leaf of a
-# compressed unit visit, from stage_grid_unit: edges 6, three cross
-# products 27, e2.w2 5, the w column's non-zero entries 9 ((-n + w1) + w2
-# over d, e1 - e2 over o x d), the normal's norm 7 and divisions 3; sign
-# flips and entries that are 0 are not counted.
+# compares, one select, one running-minimum compare. The kernel sums the
+# same terms (and multiplies the ones row). It counts per (tested lane,
+# leaf): the kernel tests only the lanes of the gated sub-groups whose
+# running best exceeds t_min (`tests`); the others cannot change. Per
+# leaf of a compressed unit visit, from stage_grid_unit: edges 6, three
+# cross products 27, e2.w2 5, the w column's non-zero entries 9 ((-n +
+# w1) + w2 over d, e1 - e2 over o x d), the normal's norm 7 and
+# divisions 3; sign flips and entries that are 0 are not counted.
 K2_OPS_PER_RAY_LEAF = 5 + 11 + 11 + 6 + 11 + 1 + 4 + 4 + 1 + 1
 K2_DERIVE_OPS_PER_LEAF = 6 + 27 + 5 + 9 + 7 + 3
 # K2 unit visits the plain version may walk in one comparison (~2 ms per
 # visit on the card); above it the comparison takes CHECK_TILES groups.
 PLAIN_VISITS_K2 = 12000
+# Frame 0's bounce-1 K2 launch of config 5: (visits, gated sub-groups),
+# precomputed and compressed, as every chip run since K2's port counted
+# them; the walk is deterministic and the redesign kept it.
+K2_PINS = {"config 5": (5144, 16947), "config 5 compressed": (4670, 14313)}
+# K2's ms per bounce of frame 0 before the redesign (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6), printed beside this run's.
+K2_MS_BEFORE = {"config 5": (6.6740, 5.7714, 3.9459),
+                "config 5 compressed": (6.5419,)}
 
 
 def _log(msg: str) -> None:
@@ -1006,13 +1019,14 @@ def _reset_all():
 
 def _k2_check(card, name, launch, derive):
     """K2 on one recorded launch against its plain version, timed, with
-    its bound. Returns (max |diff|, kernel ms, plain ms, bound, visits,
-    gated sub-groups, groups compared)."""
+    its bound. Returns a dict: max |diff|, kernel ms, plain ms, bound,
+    visits, gated sub-groups, tests (listed lane x unit pairs), groups
+    compared."""
     from rtmm_tpu_torch.ops import group_trace
     _, args, kwargs = launch
     k = group_trace.trace_group(*args, **kwargs)
     torch.cuda.synchronize()
-    nvis, ngated = int(k[2].sum()), int(k[3].sum())
+    nvis, ngated, ntests = (int(x.sum()) for x in k[2:])
     ccount = args[3]
     groups = (None if nvis <= PLAIN_VISITS_K2
               else _check_rows(ccount, k[2]))
@@ -1021,15 +1035,17 @@ def _k2_check(card, name, launch, derive):
     sel = slice(None) if groups is None else groups
     nonempty = int((ccount > 0).sum())
     n_cmp = nonempty if groups is None else len(groups)
-    same_counts = (torch.equal(k[2][sel], p[2][sel])
-                   and torch.equal(k[3][sel], p[3][sel]))
+    same_counts = all(torch.equal(k[j][sel], p[j][sel]) for j in (2, 3, 4))
     same_t = torch.equal(k[0][sel], p[0][sel])
     err_t = float((k[0][sel] - p[0][sel]).abs().max())
     err_n = float((k[1][sel] - p[1][sel]).abs().max())
+    busy = int(k[2].argmax())
     _log(f"[{name} check] K2 vs plain on {n_cmp} of {nonempty} non-empty "
-         f"groups ({args[0].shape[0]} in the launch): visits "
-         f"{int(k[2][sel].sum())} of {nvis} and gated sub-groups "
-         f"{int(k[3][sel].sum())} of {ngated} equal per group: "
+         f"groups ({args[0].shape[0]} in the launch; the busiest walks "
+         f"{int(k[2][busy])} visits, {int(k[4][busy])} tests): visits "
+         f"{int(k[2][sel].sum())} of {nvis}, gated sub-groups "
+         f"{int(k[3][sel].sum())} of {ngated} and tests "
+         f"{int(k[4][sel].sum())} of {ntests} equal per group: "
          f"{same_counts}; t bit-equal: {same_t} (max |diff| {err_t:.3e}); "
          f"normals max |diff| {err_n:.3e} (<= {MAX_ABS_ERR:g}: exact-t "
          "ties sum in another order)")
@@ -1046,33 +1062,72 @@ def _k2_check(card, name, launch, derive):
     nbytes = _nbytes(*args[:10], *(v for v in kwargs.values()
                                    if isinstance(v, torch.Tensor)),
                      *k)
-    ops = ngated * 128 * 64 * K2_OPS_PER_RAY_LEAF
+    ops = ntests * 64 * K2_OPS_PER_RAY_LEAF
     if derive:
         ops += nvis * 64 * K2_DERIVE_OPS_PER_LEAF
     ops_ms = ops / PEAK_FP32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
     bound = (max(ops_ms, bytes_ms), by)
-    _log(f"[bound {name}] {card}: {ops:.4e} fp32 ops ({ngated} gated "
-         f"sub-groups x 128 rays x 64 leaves x {K2_OPS_PER_RAY_LEAF}"
+    _log(f"[bound {name}] {card}: {ops:.4e} fp32 ops ({ntests} tests x 64 "
+         f"leaves x {K2_OPS_PER_RAY_LEAF}"
          + (f" + {nvis} visits x 64 leaves x {K2_DERIVE_OPS_PER_LEAF} derive"
             if derive else "")
          + f") / 67 TFLOP/s = {ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB / "
          f"3.35 TB/s = {bytes_ms:.4f} ms; bound {bound[0]:.4f} ms ({by}); "
          f"K2 {kernel_ms:.4f} ms, at {bound[0] / kernel_ms:.3f} of it")
-    return (max(err_t, err_n), kernel_ms, plain_ms, bound, nvis, ngated,
-            n_cmp)
+    return dict(err=max(err_t, err_n), ms=kernel_ms, plain_ms=plain_ms,
+                bound=bound, visits=nvis, gated=ngated, tests=ntests,
+                groups=n_cmp)
 
 
-def _k2_entry(name, launches, err, kernel_ms, plain_ms, bound, **extra):
+def _k2_frame0(card, name, launches, derive):
+    """K2 against its plain version on every launch of frame 0 (one per
+    window of each bounce), the bounce-1 counts held to their pins, each
+    bounce's K2 ms printed beside the ms before the redesign. Returns the
+    checks of the launches and the K2 ms per bounce."""
+    checks = []
+    for launch in launches:
+        c = _k2_check(card, f"{name}, bounce {launch[0]}", launch, derive)
+        c["bounce"] = launch[0]
+        checks.append(c)
+    first = checks[0]
+    if first["bounce"] != 1 or (first["visits"], first["gated"]) != \
+            K2_PINS[name]:
+        raise RuntimeError(f"{name}: bounce-1 visits / gated "
+                           f"{first['visits']} / {first['gated']}, pinned "
+                           f"{K2_PINS[name]}")
+    per_bounce = {}
+    for c in checks:
+        per_bounce[c["bounce"]] = per_bounce.get(c["bounce"], 0.0) + c["ms"]
+    before = K2_MS_BEFORE[name]
+    _log(f"[{name} K2 per bounce] {card}: bounce-1 visits / gated "
+         f"{first['visits']} / {first['gated']} equal the pin; "
+         + "; ".join(f"bounce {b} {v:.4f} ms ("
+                     + (f"{before[b - 1]:.4f} before the redesign"
+                        if b <= len(before) else "not measured before")
+                     + f", tests {sum(c['tests'] for c in checks if c['bounce'] == b)})"
+                     for b, v in sorted(per_bounce.items())))
+    return checks, [per_bounce[b] for b in sorted(per_bounce)]
+
+
+def _k2_entry(name, launches, checks, **extra):
+    """The kernel-table entry of K2: ms, plain ms and bound of frame 0's
+    bounce-1 launch, max |diff| over every launch checked."""
+    first = checks[0]
+    bound = first["bound"]
     entry = {"name": name, "route": "cuda",
              "source": "rtmm_tpu_torch/csrc/group_trace.cu",
              "replaces": "rtmm_tpu/ops/pallas_grouped.py:686 (_launch, "
                          + ("compressed grid_su)" if "compressed" in name
                             else "precomputed unit_q16)"),
-             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-             "plain_ms": plain_ms, "bound_ms": bound[0],
-             "bound_by": bound[1], "library_ms": None}
+             "launches": launches,
+             "max_abs_err": max(c["err"] for c in checks), "ms": first["ms"],
+             "plain_ms": first["plain_ms"], "bound_ms": bound[0],
+             "bound_by": bound[1], "library_ms": None,
+             "plain_groups": first["groups"], "visits": first["visits"],
+             "gated": first["gated"], "tests": first["tests"],
+             "bounds_ms_per_bounce": [c["bound"][0] for c in checks]}
     entry.update(extra)
     return entry
 
@@ -1150,16 +1205,16 @@ def phase_config5(card):
          f"{[round(v, 2) for v in live_orbit.tolist()]}; rays traced per "
          f"frame (bench.py:701-708): frame 0 {rays0:.0f}, orbit {rays_orbit:.0f}")
 
-    # -- K2 against its plain version on frame 0's bounce-1 launch ---------
+    # -- K2 against its plain version on every launch of frame 0 -----------
     rec = {}
     with _k2_recording(rec, launches=True):
         img_r, _ = tracer.render(ivp)
     torch.cuda.synchronize()
     if not torch.equal(img_r, img0):
         raise RuntimeError("config 5: recorded frame differs")
-    first = rec["launches"][0]
-    err, k2_ms, plain_ms, bound, nvis, ngated, n_cmp = _k2_check(
-        card, "config 5", first, False)
+    checks, k2_per_bounce = _k2_frame0(card, "config 5", rec["launches"],
+                                       False)
+    first = checks[0]
 
     # -- the reference's engine gate (bench.py:543-585) ------------------
     cfgv = dataclasses.replace(cfg, width=PT_VERIFY, height=PT_VERIFY)
@@ -1231,15 +1286,6 @@ def phase_config5(card):
     stages = {k: sum(s.elapsed_time(e) for s, e in v)
               for k, v in timings.items()}
 
-    def replay(bounce):
-        for b, args, kwargs in rec["launches"]:
-            if b == bounce:
-                group_trace.trace_group(*args, **kwargs)
-
-    per_bounce = {}
-    for b in sorted({b for b, _, _ in rec["launches"]}):
-        replay(b)
-        per_bounce[b] = _events_ms(lambda b=b: replay(b), reps=3)
     o1, d1, l1, cfg_b = rec["traces"][0]
     k2_trace_ms = _events_ms(lambda: group_trace.trace_sorted(
         scene, o1, d1, l1, cfg_b), reps=1, rounds=3)
@@ -1252,21 +1298,21 @@ def phase_config5(card):
          f"({rays_orbit / (orbit_ms * 1e-3) / 1e6:.2f} Mrays/s); stages of "
          "one frame (CUDA events): "
          + "; ".join(f"{k} {v:.4f} ms" for k, v in stages.items()))
-    _log(f"[config 5 K2] {card}: bounce-1 launch {k2_ms:.4f} ms for {nvis} "
-         f"visits ({k2_ms / max(nvis, 1) * 1e3:.3f} us per visit), {ngated} "
-         f"gated sub-groups on {first[1][0].shape[0]} groups; each bounce's "
-         "launches replayed: "
-         + "; ".join(f"bounce {b} {v:.4f} ms" for b, v in
-                     per_bounce.items())
-         + f"; bounce 1's whole secondary trace (prologue + window loop) "
+    _log(f"[config 5 K2] {card}: bounce-1 launch {first['ms']:.4f} ms for "
+         f"{first['visits']} visits "
+         f"({first['ms'] / max(first['visits'], 1) * 1e3:.3f} us per visit), "
+         f"{first['gated']} gated sub-groups, {first['tests']} tests on "
+         f"{rec['launches'][0][1][0].shape[0]} groups; K2 per bounce "
+         + ", ".join(f"{v:.4f}" for v in k2_per_bounce)
+         + f" ms; bounce 1's whole secondary trace (prologue + window loop) "
          f"{k2_trace_ms:.4f} ms; the grouped engine on the same rays "
-         f"{grouped_ms:.4f} ms; plain K2 {plain_ms:.1f} ms on {n_cmp} groups")
+         f"{grouped_ms:.4f} ms; plain K2 {first['plain_ms']:.1f} ms on "
+         f"{first['groups']} groups")
     entry = _k2_entry(
-        "group_trace", k2_launches, err, k2_ms, plain_ms, bound,
-        plain_groups=n_cmp, visits=nvis, frame_ms=frame_ms,
+        "group_trace", k2_launches, checks, frame_ms=frame_ms,
         orbit_ms_per_frame=orbit_ms,
         mrays_per_s=rays_orbit / (orbit_ms * 1e-3) / 1e6,
-        k2_ms_per_bounce=[per_bounce[b] for b in sorted(per_bounce)],
+        k2_ms_per_bounce=k2_per_bounce,
         grouped_engine_bounce1_ms=grouped_ms, stages_ms=stages,
         verify=gate)
     return entry, img0, scene.device_bytes(), mesh, cfg, pt, ivp
@@ -1297,8 +1343,9 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
     with _k2_recording(rec, launches=True):
         tracer.render(ivp)
     torch.cuda.synchronize()
-    err, k2_ms, plain_ms, bound, nvis, ngated, n_cmp = _k2_check(
-        card, "config 5 compressed", rec["launches"][0], True)
+    checks, k2_per_bounce = _k2_frame0(card, "config 5 compressed",
+                                       rec["launches"], True)
+    first = checks[0]
 
     def frame_once():
         tracer.render(ivp)
@@ -1306,11 +1353,11 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
     frame_once()
     frame_ms = _events_ms(frame_once, reps=1, rounds=3)
     _log(f"[config 5 compressed time] {card}: frame {frame_ms:.4f} ms; K2 "
-         f"bounce-1 launch {k2_ms:.4f} ms for {nvis} visits; plain K2 "
-         f"{plain_ms:.1f} ms on {n_cmp} groups")
-    return _k2_entry("group_trace_compressed", k2_launches, err, k2_ms,
-                     plain_ms, bound, plain_groups=n_cmp, visits=nvis,
-                     frame_ms=frame_ms,
+         f"bounce-1 launch {first['ms']:.4f} ms for {first['visits']} "
+         f"visits; plain K2 {first['plain_ms']:.1f} ms on {first['groups']} "
+         "groups")
+    return _k2_entry("group_trace_compressed", k2_launches, checks,
+                     k2_ms_per_bounce=k2_per_bounce, frame_ms=frame_ms,
                      mib=scene.device_bytes() / 2**20,
                      mib_precomputed=bytes5 / 2**20, verify=gate)
 

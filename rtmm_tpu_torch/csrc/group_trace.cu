@@ -13,36 +13,63 @@
 // where several leaves hit at exactly the same t (the winner normals are
 // summed in another order).
 //
-// Design. One block per group of 1,024 sorted rays, one thread per ray;
-// warps 4j..4j+3 are sub-group j (128 rays with their own origin and
-// reach boxes, held in shared memory with the scene-exit tail). The block
-// walks the group's front-to-back cluster list. Per cluster, 64 threads
-// cull the cluster's units against the 8 reach boxes (one bit per sub)
-// and hold each unit's distance from every sub's origin box. Picks are a
-// warp arg-min of the nearest eligible distance (ties to the lowest lane)
-// over the two warps of unit lanes, combined by thread 0. The pick order
-// is the TPU kernel's two-deep pipeline order: u0 and u1 are picked with
-// the cluster's entry bounds, and each step picks the next unit with the
-// current bounds before it processes the current one. A processed unit's
-// gate bits (inside[j] && dist[j] <= ws[j], with the current bounds) say
-// which sub-groups run Möller-Trumbore on it; its q16 rows 0-9 (with the
-// w column (det - u) - v formed on the table) and normals are staged in
-// shared memory, or derived there from the record, one thread per leaf.
-// Each thread keeps its ray's closest hit in registers. Per-sub worst
-// bounds (a hit's t, or a miss's scene-exit t, floored at 0; dead lanes
-// carry t = 0) are block max-reductions on order-preserving int keys,
-// refreshed after every unit. The walk stops when the largest sub bound
-// is below the next cluster's entry distance.
+// Design. One block per group of 1,024 sorted rays; warps 4j..4j+3 own
+// sub-group j (128 rays with their own origin and reach boxes, held in
+// shared memory with the scene-exit tail), and each thread owns one ray's
+// running best in registers. The block walks the group's front-to-back
+// cluster list. Per cluster, 64 threads cull the cluster's units against
+// the 8 reach boxes (one bit per sub) and hold each unit's distance from
+// every sub's origin box. Picks are a warp arg-min of the nearest eligible
+// distance (ties to the lowest lane) over the two warps of unit lanes,
+// combined by thread 0. The pick order is the TPU kernel's two-deep
+// pipeline order: u0 and u1 are picked with the cluster's entry bounds,
+// and each step picks the next unit with the current bounds before it
+// processes the current one. A processed unit's gate bits (inside[j] &&
+// dist[j] <= ws[j], with the current bounds) say which sub-groups it
+// tests. Per-sub worst bounds (a hit's t, or a miss's scene-exit t,
+// floored at 0; dead lanes carry t = 0) are block max-reductions on
+// order-preserving int keys, refreshed after every unit. The walk stops
+// when the largest sub bound is below the next cluster's entry distance.
 //
-// What bounds it: arithmetic. Each (ray, leaf) test here is ~106 float32
-// operations (five 10-term dot products over the ray rows [d, o x d, o,
-// 1], one correctly rounded division, four quotients, four compares, the
-// leaf minimum), run only on the gated sub-groups; the unit tables (10 KB)
-// or records (1.5-2.5 KB) are read from L2 once per visit and broadcast
-// from shared memory. The table has a fixed layout of zeros (det uses 3
-// of the 10 ray rows, u, v and w 6, t 4), so the test needs ~55 of those
-// operations. This first version aims to be right: it does not skip the
-// zeros and uses no tensor cores.
+// The test step of a visit:
+// - Listing. The lanes of the gated sub-groups whose running best exceeds
+//   t_min are listed in shared memory in lane order (warp ballots, a
+//   prefix over the 32 warp counts). The others cannot change: an
+//   accepted leaf has t >= t_min and the take is strict, so skipping them
+//   changes no output, bound or visit. A visit with no listed lane stages
+//   nothing.
+// - Staging. Only the table's non-zero terms: over the ray rows [d, o x d,
+//   o, 1], det uses rows 0-2, u, v and the w column (det - u) - v rows 0-5,
+//   t rows 6-9: 25 row-blocks of 64 leaves (6.4 KB), copied from unit_q16
+//   or derived from the record, one thread per leaf.
+// - Work split. Each listed lane gets S leaf slices, S the largest power
+//   of two <= 32 with S x listed <= 1,024, so one pass covers the visit
+//   and a visit with few live rays spreads their leaves over every warp.
+//   Slice s holds the leaf pairs (2s, 2s + 1), (2s + 2S, 2s + 2S + 1), ...
+//   (each row read as one float2; the S threads of a lane read
+//   neighbouring banks) and folds them in leaf order with the kernel's
+//   rule (first leaf or t < tb replaces, t == tb adds the normal); the S
+//   consecutive threads combine their partials by warp shuffles, and the
+//   lane's owner applies the t_max window and the strict-< take. A listed
+//   lane's ray rows are read from rv (L1-resident): staging them in
+//   shared memory measured the same on config 5, and needs dynamic shared
+//   memory. Pairs cut the shared loads per test from 28 to 14 and took
+//   3-7% off every bounce against one leaf at a time.
+// The minimum over leaves is exact in any grouping, so t and every count
+// equal the plain version's; only the normals summed over exact-t ties
+// are added in another order.
+//
+// What bounds it now (config 5 on an H100, tools/k2_ab.py): the busiest
+// group sets the launch time, and one block walks it alone on one SM. At
+// bounces 1 and 2 that block visits all 320 units of the scene with ~230
+// and ~130 listed lanes per visit, ~9.8 and ~7.0 us a visit; a visit with
+// 3 listed lanes (bounce 3) still costs ~2.9 us: its ~9 barriers, the
+// pick and the unit staging's round trip to L2. By its instruction count
+// a busy visit runs at about 3 of the SM's 4 warp instructions per cycle
+// (a test is ~90 instructions: 55 float32 operations, 14 shared loads,
+// the correctly rounded division, the compares and the fold). What is left
+// is structural: one SM per group (54 of 132 busy at bounce 1, one at
+// bounces 2-3) and the staging latency on each visit's critical path.
 //
 // The TPU mechanics are left behind: the bf16 hi/lo splits of the ray
 // rows, tables and normals, the one-hot matmul gathers, the DMA ring and
@@ -63,7 +90,15 @@ constexpr int kUpc = 64;                // units per cluster
 constexpr int kMetaLanes = 128;         // cluster_unit_meta row width
 constexpr int kQ16Cols = 4 * kLpu;      // unit_q16 row: det|u|v|t
 constexpr int kRows = 10;               // ray rows [d, o x d, o, 1]
-constexpr int kCols = 5 * kLpu;         // staged: det|u|v|t|w
+constexpr int kWarps = kGroup / 32;
+constexpr int kMaxSlices = 32;          // leaf slices per listed lane
+// Staged row-blocks: the table's non-zero terms over the ray rows.
+constexpr int kQDet = 0;                // det: rows 0-2
+constexpr int kQU = 3;                  // u: rows 0-5
+constexpr int kQV = 9;                  // v: rows 0-5
+constexpr int kQT = 15;                 // t: rows 6-9
+constexpr int kQW = 19;                 // w = (det - u) - v: rows 0-5
+constexpr int kQRows = 25;
 constexpr int kBox = kNs * 16 + 16;     // per-sub boxes, then the exit box
 constexpr int kGridLanes = 128;         // compressed record row width
 constexpr float kBig = 1e30f;           // miss sentinel
@@ -71,7 +106,7 @@ constexpr float kUvEps = 1e-3f;         // MT_UV_EPS, intersection.hlsl:413
 constexpr float kTiny = 1e-12f;
 
 struct Shared {
-  float q[kRows][kCols];        // staged unit: det|u|v|t|w over rows 0-9
+  float q[kQRows][kLpu];        // staged unit: non-zero table rows
   float nrm[3][kLpu];           // staged unit: leaf normals
   float box[kBox];
   float dist[kNs][kUpc];        // sub origin box -> unit AABB distance
@@ -83,6 +118,9 @@ struct Shared {
   int pick;
   float pos[3][kGridLanes];     // compressed: the staged record's positions
   int cidx[3][kLpu];            // compressed: leaf-corner lanes
+  int wcount[kWarps];           // listed lanes per warp
+  int list[kGroup];             // listed lanes, in lane order
+  float4 part[kGroup];          // per listed lane: leaf minimum, normal
 };
 
 // Kernel arguments.
@@ -105,6 +143,7 @@ struct Args {
   float* n_out;
   int* visits;           // (g,) units whose gate let MT run
   int* gated;            // (g,) sub-groups those units ran on
+  int* tests;            // (g,) listed lanes summed over those units
   int kc;
   float t_min, t_max;
 };
@@ -211,22 +250,24 @@ __device__ int pick(Shared& sh, const float ws[kNs], int tid) {
   return sh.pick;
 }
 
-// Stage a precomputed unit: q16 rows 0-9 of the det|u|v|t blocks, the w
-// column (det - u) - v formed on them, and the normal rows 0-2.
+// Stage a precomputed unit: the non-zero q16 rows of the det|u|v|t
+// blocks, the w column (det - u) - v formed on rows 0-5, and the normal
+// rows 0-2.
 __device__ void stage_unit(Shared& sh, const Args& a, int unit, int tid) {
-  if (tid < kRows * kLpu) {
-    const int r = tid / kLpu, k = tid % kLpu;
-    const float* q = a.q16 + (static_cast<size_t>(unit) * 16 + r) * kQ16Cols;
-    const float qd = q[k], qu = q[kLpu + k], qv = q[2 * kLpu + k];
-    sh.q[r][k] = qd;
-    sh.q[r][kLpu + k] = qu;
-    sh.q[r][2 * kLpu + k] = qv;
-    sh.q[r][3 * kLpu + k] = q[3 * kLpu + k];
-    sh.q[r][4 * kLpu + k] = (qd - qu) - qv;
-  } else if (tid < kRows * kLpu + 3 * kLpu) {
-    const int i = tid - kRows * kLpu;
-    const int r = i / kLpu, k = i % kLpu;
-    sh.nrm[r][k] = a.nrm[(static_cast<size_t>(unit) * 8 + r) * a.npad + k];
+  const float* q = a.q16 + static_cast<size_t>(unit) * 16 * kQ16Cols;
+  const int r = tid / kLpu, k = tid % kLpu;
+  if (r < 6) {
+    const float* qr = q + r * kQ16Cols;
+    const float qd = qr[k], qu = qr[kLpu + k], qv = qr[2 * kLpu + k];
+    if (r < 3) sh.q[kQDet + r][k] = qd;
+    sh.q[kQU + r][k] = qu;
+    sh.q[kQV + r][k] = qv;
+    sh.q[kQW + r][k] = (qd - qu) - qv;
+  } else if (r < kRows) {
+    sh.q[kQT + r - 6][k] = q[r * kQ16Cols + 3 * kLpu + k];
+  } else if (r < kRows + 3) {
+    sh.nrm[r - kRows][k] =
+        a.nrm[(static_cast<size_t>(unit) * 8 + r - kRows) * a.npad + k];
   }
   __syncthreads();
 }
@@ -275,13 +316,13 @@ __device__ void stage_grid_unit(Shared& sh, const Args& a, int unit,
     const float qv[kRows] = {-w2x, -w2y, -w2z, -e1x, -e1y, -e1z,
                              0, 0, 0, 0};
     const float qt[kRows] = {0, 0, 0, 0, 0, 0, nx, ny, nz, -e2w2};
-    for (int r = 0; r < kRows; ++r) {
-      sh.q[r][k] = qd[r];
-      sh.q[r][kLpu + k] = qu[r];
-      sh.q[r][2 * kLpu + k] = qv[r];
-      sh.q[r][3 * kLpu + k] = qt[r];
-      sh.q[r][4 * kLpu + k] = (qd[r] - qu[r]) - qv[r];
+    for (int r = 0; r < 6; ++r) {
+      if (r < 3) sh.q[kQDet + r][k] = qd[r];
+      sh.q[kQU + r][k] = qu[r];
+      sh.q[kQV + r][k] = qv[r];
+      sh.q[kQW + r][k] = (qd[r] - qu[r]) - qv[r];
     }
+    for (int r = 6; r < kRows; ++r) sh.q[kQT + r - 6][k] = qt[r];
     const float nn = jmax(sqrtf(nx * nx + ny * ny + nz * nz), 1e-20f);
     sh.nrm[0][k] = nx / nn;
     sh.nrm[1][k] = ny / nn;
@@ -290,58 +331,103 @@ __device__ void stage_grid_unit(Shared& sh, const Args& a, int unit,
   __syncthreads();
 }
 
-// One 10-term dot product of a staged column with the ray rows, summed
-// left to right.
-__device__ __forceinline__ float dot10(const Shared& sh, int c,
-                                       const float r[kRows]) {
-  float acc = sh.q[0][c] * r[0];
+// Leaves k and k + 1 (k even) of n staged rows from row q0, read as
+// float2, dotted with the ray rows r[0..n), each summed left to right.
+__device__ __forceinline__ float2 dot_rows(const Shared& sh, int q0, int k,
+                                           const float* r, int n) {
+  float2 q = *reinterpret_cast<const float2*>(&sh.q[q0][k]);
+  float2 acc = make_float2(q.x * r[0], q.y * r[0]);
 #pragma unroll
-  for (int i = 1; i < kRows; ++i) acc = acc + sh.q[i][c] * r[i];
+  for (int i = 1; i < n; ++i) {
+    q = *reinterpret_cast<const float2*>(&sh.q[q0 + i][k]);
+    acc.x = acc.x + q.x * r[i];
+    acc.y = acc.y + q.y * r[i];
+  }
   return acc;
 }
 
-// Fold the staged unit's 64 leaves into this thread's running best
-// (process_unit's mt_lanes).
-__device__ __forceinline__ void process_unit(const Shared& sh,
-                                             const float r[kRows],
-                                             float t_min, float t_max,
-                                             float& bt, float& bnx,
-                                             float& bny, float& bnz) {
-  float tb = kBig, nsx = 0.0f, nsy = 0.0f, nsz = 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < kLpu; ++k) {
-    const float det = dot10(sh, k, r);
-    const float un = dot10(sh, kLpu + k, r);
-    const float vn = dot10(sh, 2 * kLpu + k, r);
-    const float tn = dot10(sh, 3 * kLpu + k, r);
-    const float wn = dot10(sh, 4 * kLpu + k, r);
-    // No det guard: det == 0 gives inf/NaN quotients that fail the window.
-    const float iv = 1.0f / det;
-    const float uu = un * iv, vv = vn * iv, ww = wn * iv, tt = tn * iv;
-    // w-form acceptance, min(u, v, w) >= -eps (a NaN fails every compare).
-    const bool ok = uu >= -kUvEps && vv >= -kUvEps && ww >= -kUvEps &&
-                    tt >= t_min;
-    const float t = ok ? tt : kBig;
-    // Leaf minimum with the winner normal summed over exact ties.
-    if (k == 0 || t < tb) {
-      tb = t;
-      nsx = sh.nrm[0][k];
-      nsy = sh.nrm[1][k];
-      nsz = sh.nrm[2][k];
-    } else if (t == tb) {
-      nsx += sh.nrm[0][k];
-      nsy += sh.nrm[1][k];
-      nsz += sh.nrm[2][k];
+// Möller-Trumbore of one quotient set: t when accepted, else kBig.
+__device__ __forceinline__ float mt_accept(float det, float un, float vn,
+                                           float tn, float wn, float t_min) {
+  // No det guard: det == 0 gives inf/NaN quotients that fail the window.
+  const float iv = 1.0f / det;
+  const float uu = un * iv, vv = vn * iv, ww = wn * iv, tt = tn * iv;
+  // w-form acceptance, min(u, v, w) >= -eps (a NaN fails every compare).
+  const bool ok = uu >= -kUvEps && vv >= -kUvEps && ww >= -kUvEps &&
+                  tt >= t_min;
+  return ok ? tt : kBig;
+}
+
+// Möller-Trumbore of the staged leaves k, k + 1 against ray rows r.
+__device__ __forceinline__ float2 mt_pair(const Shared& sh, int k,
+                                          const float r[kRows],
+                                          float t_min) {
+  const float2 det = dot_rows(sh, kQDet, k, r, 3);
+  const float2 un = dot_rows(sh, kQU, k, r, 6);
+  const float2 vn = dot_rows(sh, kQV, k, r, 6);
+  const float2 tn = dot_rows(sh, kQT, k, r + 6, 4);
+  const float2 wn = dot_rows(sh, kQW, k, r, 6);
+  return make_float2(mt_accept(det.x, un.x, vn.x, tn.x, wn.x, t_min),
+                     mt_accept(det.y, un.y, vn.y, tn.y, wn.y, t_min));
+}
+
+// The leaf fold: a smaller t replaces the minimum and its normal, an equal
+// one adds its normal (winner normals summed over exact ties).
+__device__ __forceinline__ void fold(float t, float nx, float ny, float nz,
+                                     float& tb, float& sx, float& sy,
+                                     float& sz) {
+  if (t < tb) {
+    tb = t;
+    sx = nx;
+    sy = ny;
+    sz = nz;
+  } else if (t == tb) {
+    sx += nx;
+    sy += ny;
+    sz += nz;
+  }
+}
+
+// Test the staged unit on the nl listed lanes: S slices of leaf pairs per
+// lane over the block's threads, partials combined across the S threads
+// by shuffles, each lane's (leaf minimum, summed normal) left in
+// sh.part[slot]. Ends with the block barrier that publishes it.
+__device__ void test_listed(Shared& sh, const float* __restrict__ rv,
+                            int nl, float t_min, int tid) {
+  int sl = kMaxSlices;
+  while (sl > 1 && nl * sl > kGroup) sl >>= 1;
+  const int slot = tid / sl, s = tid % sl;
+  float tb = kBig, sx = 0.0f, sy = 0.0f, sz = 0.0f;
+  if (slot < nl) {
+    const float* row = rv + sh.list[slot];
+    float r[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) r[i] = __ldg(row + i * kGroup);
+    for (int k = 2 * s; k < kLpu; k += 2 * sl) {
+      const float2 t = mt_pair(sh, k, r, t_min);
+      const float2 nx = *reinterpret_cast<const float2*>(&sh.nrm[0][k]);
+      const float2 ny = *reinterpret_cast<const float2*>(&sh.nrm[1][k]);
+      const float2 nz = *reinterpret_cast<const float2*>(&sh.nrm[2][k]);
+      if (k == 2 * s) {                     // the slice's first leaf
+        tb = t.x;
+        sx = nx.x;
+        sy = ny.x;
+        sz = nz.x;
+      } else {
+        fold(t.x, nx.x, ny.x, nz.x, tb, sx, sy, sz);
+      }
+      fold(t.y, nx.y, ny.y, nz.y, tb, sx, sy, sz);
     }
   }
-  // The t_max window on the leaf minimum, then the strict-< take.
-  tb = tb <= t_max ? tb : kBig;
-  if (tb < bt) {
-    bt = tb;
-    bnx = nsx;
-    bny = nsy;
-    bnz = nsz;
+  for (int o = 1; o < sl; o <<= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, tb, o);
+    const float x2 = __shfl_xor_sync(0xffffffffu, sx, o);
+    const float y2 = __shfl_xor_sync(0xffffffffu, sy, o);
+    const float z2 = __shfl_xor_sync(0xffffffffu, sz, o);
+    fold(t2, x2, y2, z2, tb, sx, sy, sz);
   }
+  if (s == 0 && slot < nl) sh.part[slot] = make_float4(tb, sx, sy, sz);
+  __syncthreads();
 }
 
 template <bool Compressed>
@@ -361,13 +447,15 @@ group_trace_kernel(const Args a) {
     if (tid == 0) {
       a.visits[g] = 0;
       a.gated[g] = 0;
+      a.tests[g] = 0;
     }
     return;
   }
+  const int warp = tid / 32, lane = tid % 32;
+  const float* rv = a.rv + static_cast<size_t>(g) * 16 * kGroup;
   float r[kRows];
-  const float* rv = a.rv + static_cast<size_t>(g) * 16 * kGroup + tid;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) r[i] = rv[i * kGroup];
+  for (int i = 0; i < kRows; ++i) r[i] = rv[i * kGroup + tid];
   if (tid < kBox) sh.box[tid] = a.box[static_cast<size_t>(g) * kBox + tid];
   if (Compressed && a.corners != nullptr && tid < 3 * kLpu)
     sh.cidx[tid / kLpu][tid % kLpu] = a.corners[tid];
@@ -387,7 +475,7 @@ group_trace_kernel(const Args a) {
   float bt = a.t_in[ray];
   float bnx = a.n_in[nrow], bny = a.n_in[nrow + kGroup];
   float bnz = a.n_in[nrow + 2 * kGroup];
-  int nv = 0, ngated = 0;
+  int nv = 0, ngated = 0, ntests = 0;
   float ws[kNs];
   worst_subs(sh, bt, exit_t, sub, tid, ws);
   const int* cand = a.ccand + static_cast<size_t>(g) * a.kc;
@@ -411,15 +499,43 @@ group_trace_kernel(const Args a) {
       for (int j = 0; j < kNs; ++j)
         if (((in >> j) & 1u) && sh.dist[j][u] <= ws[j]) bits |= 1u << j;
       if (bits) {
-        const int unit = cl * kUpc + u;
-        if (Compressed)
-          stage_grid_unit(sh, a, unit, tid);
-        else
-          stage_unit(sh, a, unit, tid);
-        if ((bits >> sub) & 1u)
-          process_unit(sh, r, a.t_min, a.t_max, bt, bnx, bny, bnz);
+        // List the gated lanes that a hit can still improve.
+        const bool listed = ((bits >> sub) & 1u) && bt > a.t_min;
+        const unsigned bal = __ballot_sync(0xffffffffu, listed);
+        if (lane == 0) sh.wcount[warp] = __popc(bal);
+        __syncthreads();
+        int c = sh.wcount[lane];                // inclusive warp-count scan
+        for (int o = 1; o < kWarps; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, c, o);
+          if (lane >= o) c += v;
+        }
+        const int nl = __shfl_sync(0xffffffffu, c, kWarps - 1);
+        const int before = __shfl_sync(0xffffffffu, c, max(warp - 1, 0));
+        const int slot = (warp > 0 ? before : 0) +
+                         __popc(bal & ((1u << lane) - 1u));
+        if (nl > 0) {
+          if (listed) sh.list[slot] = tid;
+          const int unit = cl * kUpc + u;
+          if (Compressed)
+            stage_grid_unit(sh, a, unit, tid);
+          else
+            stage_unit(sh, a, unit, tid);
+          test_listed(sh, rv, nl, a.t_min, tid);
+          if (listed) {
+            // The t_max window on the leaf minimum, then the strict-< take.
+            const float4 p = sh.part[slot];
+            const float tb = p.x <= a.t_max ? p.x : kBig;
+            if (tb < bt) {
+              bt = tb;
+              bnx = p.y;
+              bny = p.z;
+              bnz = p.w;
+            }
+          }
+        }
         nv += 1;
         ngated += __popc(bits);
+        ntests += nl;
       }
       worst_subs(sh, bt, exit_t, sub, tid, ws);
       u = n1;
@@ -433,6 +549,7 @@ group_trace_kernel(const Args a) {
   if (tid == 0) {
     a.visits[g] = nv;
     a.gated[g] = ngated;
+    a.tests[g] = ntests;
   }
 }
 
@@ -447,7 +564,7 @@ extern "C" int rtmm_group_trace(
     const float* centry, const float* t_in, const float* n_in,
     const float* meta, const float* q16, int npad, const float* nrm,
     const float* grid, int grows, const int* corners, float* t_out,
-    float* n_out, int* visits, int* gated, int n_groups, int kc,
+    float* n_out, int* visits, int* gated, int* tests, int n_groups, int kc,
     int n_clusters, float t_min, float t_max, void* stream) {
   Args a = {};
   a.rv = rv;
@@ -468,6 +585,7 @@ extern "C" int rtmm_group_trace(
   a.n_out = n_out;
   a.visits = visits;
   a.gated = gated;
+  a.tests = tests;
   a.kc = kc;
   a.t_min = t_min;
   a.t_max = t_max;

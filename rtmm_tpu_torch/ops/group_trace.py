@@ -20,7 +20,9 @@ windows of clusters until every group is done.
                      tensors, trace_group_plain on CPU tensors.
   trace_group_plain  the same walk in plain PyTorch, step for step (a
                      Python loop over groups, clusters and picks; each MT
-                     vectorised over 64 leaves x the gated rays).
+                     vectorised over 64 leaves x the gated rays, summing
+                     only the table's non-zero terms, TERM_ROWS, as the
+                     kernel does).
   LAUNCHES           kernel launches so far, precomputed and compressed.
 
 Semantics kept from the TPU kernel: the lagged pick order of its two-deep
@@ -32,6 +34,10 @@ rays' scene-exit bound in the per-sub worst (dead lanes start at t = 0),
 the w column (det - u) - v built on the table, the unguarded reciprocal,
 acceptance min(u, v, w) >= -MT_UV_EPS and t >= t_min, the t_max window on
 the leaf minimum, the tie-summed winner normal and the strict-< take.
+A lane whose running best is at or below t_min can never take a hit, so
+the kernel tests only the gated lanes above it; `tests` counts those
+(lane, unit) pairs, and the plain version counts them the same way while
+it tests every gated lane.
 """
 from __future__ import annotations
 
@@ -85,34 +91,42 @@ def _safe(dk: torch.Tensor) -> torch.Tensor:
                        torch.where(dk >= 0.0, TINY, -TINY), dk)
 
 
+# The ray rows [d, o x d, o, 1] (rows 0-9 of rv) that each column block
+# of the unit table, det|u|v|t|w, has non-zero terms on: the kernel stages
+# and sums only these.
+TERM_ROWS = ((0, 3), (0, 6), (0, 6), (6, 10), (0, 6))
+
+
 def _contract(qb: torch.Tensor, rv: torch.Tensor) -> torch.Tensor:
-    """(10, LPU) table block x (10, n) ray rows -> (LPU, n), summed over
-    the rows left to right, as the kernel sums them."""
+    """(k, LPU) table rows x (k, n) ray rows -> (LPU, n), summed over the
+    rows left to right, as the kernel sums them."""
     acc = qb[0][:, None] * rv[0][None, :]
-    for r in range(1, 10):
+    for r in range(1, qb.shape[0]):
         acc = acc + qb[r][:, None] * rv[r][None, :]
     return acc
 
 
 def _unit_tables(tables, nrm_tab, unit: int, compressed_: bool, corners):
-    """(q (10, 5*LPU) det|u|v|t|w column blocks over ray rows 0-9, nrm
-    (3, LPU)) of one unit, read from unit_q16 / unit_nrm_pad or derived
-    from its record."""
+    """(the det|u|v|t|w blocks of one unit, each (rows, LPU) over its
+    TERM_ROWS, nrm (3, LPU)), read from unit_q16 / unit_nrm_pad or
+    derived from its record; the w column is (det - u) - v."""
     if compressed_:
         q16, nrm = comp.derive_q16(tables[unit:unit + 1], corners)
         q16, nrm = q16[0], nrm[0].T
     else:
         q16, nrm = tables[unit], nrm_tab[unit, 0:3, 0:LPU]
     q = q16[0:10]
-    qw = (q[:, 0:LPU] - q[:, LPU:2 * LPU]) - q[:, 2 * LPU:3 * LPU]
-    return torch.cat([q, qw], dim=1), nrm
+    det, u, v, t = (q[:, i * LPU:(i + 1) * LPU] for i in range(4))
+    blocks = (det, u, v, t, (det - u) - v)
+    return [b[lo:hi] for b, (lo, hi) in zip(blocks, TERM_ROWS)], nrm
 
 
 def _group_plain(rv, box, ccand_row, centry_row, cnt, meta, tables, nrm_tab,
                  cfg, bt, bn, compressed_, corners):
     """One group's walk. rv (16, GROUP) ray rows; box (BOX,) the per-sub
     boxes and the scene-exit tail; bt (GROUP,), bn (3, GROUP) the running
-    best it starts from. Returns (bt, bn, visits, gated sub-groups)."""
+    best it starts from. Returns (bt, bn, visits, gated sub-groups,
+    tests: the gated lanes above t_min summed over the visits)."""
     dev = rv.device
     tail = NS * 16
     e_row = None
@@ -130,7 +144,7 @@ def _group_plain(rv, box, ccand_row, centry_row, cnt, meta, tables, nrm_tab,
     lane = torch.arange(UPC, device=dev)
     inf = float("inf")
     ws = worst(bt)
-    nv = nsub = 0
+    nv = nsub = ntests = 0
     kc = centry_row.shape[0]
     ci = 0
     while ci < cnt and float(ws.max()) >= float(centry_row[min(ci, kc - 1)]):
@@ -173,9 +187,14 @@ def _group_plain(rv, box, ccand_row, centry_row, cnt, meta, tables, nrm_tab,
                                                 device=dev)
                                    for j in range(NS) if bits[j]])
                 r = rv[0:10, lanes]
+                cur = bt[lanes]
+                # Only lanes above t_min can take a hit; the kernel tests
+                # those alone, this version tests every gated lane.
+                ntests += int((cur > cfg.t_min).sum())
 
                 def blk(i):
-                    return _contract(q[:, i * LPU:(i + 1) * LPU], r)
+                    lo, hi = TERM_ROWS[i]
+                    return _contract(q[i], r[lo:hi])
 
                 iv = _f32.rdiv(1.0, blk(0))
                 uu, vv, tt, ww = blk(1) * iv, blk(2) * iv, blk(3) * iv, \
@@ -188,14 +207,13 @@ def _group_plain(rv, box, ccand_row, centry_row, cnt, meta, tables, nrm_tab,
                 win = tt <= tb[None, :]
                 nsel = torch.stack([torch.where(win, nrm[c][:, None], 0.0)
                                     .sum(dim=0) for c in range(3)])
-                cur = bt[lanes]
                 take = tb < cur
                 bt[lanes] = torch.where(take, tb, cur)
                 bn[:, lanes] = torch.where(take[None], nsel, bn[:, lanes])
             ws = worst(bt)
             u, n1 = n1, n2
         ci += 1
-    return bt, bn, nv, nsub
+    return bt, bn, nv, nsub, ntests
 
 
 def trace_group_plain(rv, box, ccand, ccount, centry, t_in, n_in, meta,
@@ -208,6 +226,7 @@ def trace_group_plain(rv, box, ccand, ccount, centry, t_in, n_in, meta,
     n_groups = rv.shape[0]
     visits = torch.zeros(n_groups, dtype=torch.int32)
     gated = torch.zeros(n_groups, dtype=torch.int32)
+    tests = torch.zeros(n_groups, dtype=torch.int32)
     counts = ccount.cpu()
     ccand_h, centry_h = ccand.cpu(), centry.cpu()
     kc = ccand.shape[1]
@@ -215,14 +234,14 @@ def trace_group_plain(rv, box, ccand, ccount, centry, t_in, n_in, meta,
         cnt = min(int(counts[g]), kc)
         if cnt <= 0:
             continue
-        bt, bn, nv, ns = _group_plain(
+        bt, bn, nv, ns, nt = _group_plain(
             rv[g], box[g], ccand_h[g], centry_h[g], cnt, meta, tables,
             nrm_tab, cfg, t_out[g].clone(), n_out[g].clone(), compressed,
             corners)
         t_out[g], n_out[g] = bt, bn
-        visits[g], gated[g] = nv, ns
+        visits[g], gated[g], tests[g] = nv, ns, nt
     dev = rv.device
-    return t_out, n_out, visits.to(dev), gated.to(dev)
+    return t_out, n_out, visits.to(dev), gated.to(dev), tests.to(dev)
 
 
 # ----------------------------------------------------------------------
@@ -235,7 +254,7 @@ def _lib():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([vp] * 9 + [ci]          # rays .. carries, meta, q16, npad
                    + [vp] * 2 + [ci] + [vp]  # normals, grid, rows, corners
-                   + [vp] * 4               # t, n, visits, gated out
+                   + [vp] * 5               # t, n, visits, gated, tests
                    + [ci] * 3 + [cf] * 2 + [vp])
     fn.restype = ci
     err = lib.rtmm_cuda_error_string
@@ -262,7 +281,10 @@ def trace_group(rv, box, ccand, ccount, centry, t_in, n_in, meta, tables,
 
     Returns (t_out, n_out, visits (g,) int32 — the units whose gate let
     MT run, gated (g,) int32 — the 128-ray sub-groups those units ran
-    on). Groups with ccount 0 pass their carries through. On CUDA tensors
+    on, tests (g,) int32 — the lanes of those sub-groups whose running
+    best exceeded t_min, summed over the units: the (lane, unit) pairs
+    the kernel tests). Groups with ccount 0 pass their carries through.
+    On CUDA tensors
     the CUDA kernel runs (csrc/group_trace.cu); on CPU tensors the plain
     version; any other device raises.
     """
@@ -314,6 +336,7 @@ def trace_group(rv, box, ccand, ccount, centry, t_in, n_in, meta, tables,
     n_out = torch.empty_like(n_in)
     visits = torch.empty(n_groups, dtype=torch.int32, device=dev)
     gated = torch.empty(n_groups, dtype=torch.int32, device=dev)
+    tests = torch.empty(n_groups, dtype=torch.int32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -324,14 +347,14 @@ def trace_group(rv, box, ccand, ccount, centry, t_in, n_in, meta, tables,
                 0 if compressed else nrm_tab.shape[2], ptr(nrm_tab),
                 tables.data_ptr() if compressed else None, grows,
                 ptr(corners), t_out.data_ptr(), n_out.data_ptr(),
-                visits.data_ptr(), gated.data_ptr(), n_groups, kc, n_cl,
+                visits.data_ptr(), gated.data_ptr(), tests.data_ptr(),
+                n_groups, kc, n_cl,
                 cfg.t_min, cfg.t_max, stream)
     if rc != 0:
         raise RuntimeError("group_trace kernel launch failed: "
                            + err(rc).decode())
     LAUNCHES["group_trace_compressed" if compressed else "group_trace"] += 1
-    return t_out, n_out, visits, gated
-
+    return t_out, n_out, visits, gated, tests
 
 
 # ----------------------------------------------------------------------
@@ -429,7 +452,7 @@ def trace_sorted(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
     while bool(active.any()):
         ccand, ccount, centry, remaining, bound = _grouped_cluster_window(
             scene, omin, omax, remaining, kc)
-        best_t, best_n, _, _ = trace_group(
+        best_t, best_n, *_ = trace_group(
             rv, box, ccand, ccount, centry, best_t, best_n, meta, tables,
             nrm_tab, cfg, **opts)
         # Miss rays contribute their scene-exit reach (dead lanes carry

@@ -284,37 +284,43 @@ GROUPED = {
 }
 
 
-def _random_groups(g, device, seed=0):
+def _random_groups(g, device, seed=0, live_frac=0.6):
     rng = np.random.default_rng(seed)
     o = rng.uniform(-2.0, 2.0, (g, 1024, 3)).astype(np.float32)
     d = rng.normal(size=(g, 1024, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    live = rng.uniform(size=(g, 1024)) < 0.6
+    live = rng.uniform(size=(g, 1024)) < live_frac
     return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
             torch.from_numpy(live).to(device))
 
 
 def _hold_group(k, p):
-    """K2 against its plain version: equal visits and gated sub-groups,
-    equal hit masks; t and normals equal up to 1e-5 (exact-t ties sum
-    their normals in another order)."""
-    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
-    assert torch.equal(k[0] < 1e29, p[0] < 1e29)
-    err = max(float((k[0] - p[0]).abs().max()),
-              float((k[1] - p[1]).abs().max()))
-    print(f"visits {int(k[2].sum())}, gated {int(k[3].sum())}, "
-          f"max |diff| {err:.3e}")
+    """K2 against its plain version: equal visits, gated sub-groups and
+    tests (listed lane x unit pairs) per group, t bit for bit; normals
+    equal up to 1e-5 (exact-t ties sum their normals in another
+    order)."""
+    for j in (2, 3, 4):
+        assert torch.equal(k[j], p[j])
+    assert torch.equal(k[0], p[0])
+    err = float((k[1] - p[1]).abs().max())
+    print(f"visits {int(k[2].sum())}, gated {int(k[3].sum())}, tests "
+          f"{int(k[4].sum())}, normals max |diff| {err:.3e}")
     assert err <= 1e-5
     return int(k[2].sum())
 
 
+@pytest.mark.parametrize("live_frac", [0.6, 0.05, 1.0],
+                         ids=["live60", "live5", "all_live"])
 @pytest.mark.parametrize("name", sorted(GROUPED))
-def test_group_trace_kernel_matches_plain(cuda, name):
+def test_group_trace_kernel_matches_plain(cuda, name, live_frac):
+    """60% live lanes, a mostly-dead launch (5%: the kernel tests only
+    the few listed lanes, each over many leaf slices) and an all-live one
+    (two slices per lane at most)."""
     make, comp = GROUPED[name]
     scene = scene_mod.build_device_scene(make(), compressed=comp,
                                          device=cuda)
     cfg = RenderConfig(kernel_clusters_per_window=1)
-    o, d, live = _random_groups(4, cuda)
+    o, d, live = _random_groups(4, cuda, live_frac=live_frac)
     rv, box, _, omin, omax, cl_hit = group_trace.group_inputs(
         scene, o, d, live, cfg)
     meta, tables, nrm, opts = group_trace.scene_tables(scene)
@@ -331,6 +337,10 @@ def test_group_trace_kernel_matches_plain(cuda, name):
     p = group_trace.trace_group_plain(rv, box, *lists, t_in, n_in, meta,
                                       tables, nrm, cfg, **opts)
     assert _hold_group(k, p) > 0
+    # tests counts the live lanes of the gated sub-groups: with every lane
+    # live it is 128 per gated sub-group.
+    if live_frac == 1.0:
+        assert torch.equal(k[4], 128 * k[3])
     # The whole window loop, the kernel against the same loop on the CPU
     # scene (plain version).
     t_k, n_k, extra_k = group_trace.trace_sorted(scene, o, d, live, cfg)

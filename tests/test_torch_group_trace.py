@@ -108,7 +108,8 @@ def test_multi_window_walk():
 def test_plain_counts_and_carries():
     """trace_group_plain's per-group counts: a group with an empty list
     passes its carries through with zero counts; a walked group counts
-    at least one visit and 1-8 gated sub-groups per visit."""
+    at least one visit, 1-8 gated sub-groups per visit and at most 128
+    tested lanes per gated sub-group."""
     _, port = _scenes("icosphere")
     o, d, live = random_rays(g=3, seed=4)
     live[2] = False                               # an all-dead group
@@ -122,14 +123,16 @@ def test_plain_counts_and_carries():
     meta, tables, nrm, opts = group_trace.scene_tables(port)
     t_in = torch.where(live, group_trace.BIG, 0.0)
     n_in = torch.full((3, 3, 1024), 0.5)
-    t, n, vis, gated = group_trace.trace_group(
+    t, n, vis, gated, tests = group_trace.trace_group(
         rv, box, *lists, t_in, n_in, meta, tables, nrm, cfg, **opts)
-    assert vis.dtype == gated.dtype == torch.int32
-    assert int(vis[2]) == int(gated[2]) == 0
+    assert vis.dtype == gated.dtype == tests.dtype == torch.int32
+    assert int(vis[2]) == int(gated[2]) == int(tests[2]) == 0
     assert torch.equal(t[2], t_in[2]) and torch.equal(n[2], n_in[2])
     assert bool((vis[:2] > 0).all())
     assert bool((gated[:2] >= vis[:2]).all())
     assert bool((gated[:2] <= 8 * vis[:2]).all())
+    assert bool((tests[:2] > 0).all())
+    assert bool((tests[:2] <= 128 * gated[:2]).all())
 
 
 def test_wrapper_device_and_input_checks():

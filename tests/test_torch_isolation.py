@@ -1,6 +1,6 @@
-"""The port stands alone: no module of rtmm_tpu_torch, nor chip_smoke.py,
-imports JAX or the JAX package, and importing the port's entry points
-leaves JAX unloaded."""
+"""The port stands alone: no module of rtmm_tpu_torch, nor chip_smoke.py
+or the port's tools, imports JAX or the JAX package, and importing the
+port's entry points leaves JAX unloaded."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "rtmm_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "rtmm_tpu")
 
 
