@@ -5,7 +5,11 @@
 Phases (any failure raises and exits non-zero):
   1. card and build: the card's name and power limit; nvcc builds every
      kernel of rtmm_tpu_torch/csrc (one process per source, started
-     together) and ptxas's register/shared-memory/spill report is printed;
+     together) and ptxas's register/shared-memory/spill report is printed,
+     then each tile-trace instantiation's registers, spill bytes, static
+     shared memory and resident blocks per SM as the runtime reports them;
+     each K1 phase prints its launch's ms beside the ms before K1's
+     redesign and both against the bound;
   2. scene: bench config 3 (a 1,280-base-triangle subdiv-3 icosphere,
      81,920 micro-triangles) written as .gltf + .bary and read back through
      the port's io path, uploaded to the card;
@@ -59,7 +63,7 @@ Phases (any failure raises and exits non-zero):
      trace of the same bounce;
  15. config 5 compressed (K1d + K1c, K2 compressed): counted frames, K2
      against its plain version on every launch of frame 0 as in phase 14,
-     the frame within the gate of phase 14's,
+     the frame within the gate of phase 14's, the frame's stage times,
      MiB of both scenes.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
@@ -175,6 +179,11 @@ K2_PINS = {"config 5": (5144, 16947), "config 5 compressed": (4670, 14313)}
 # HBM3, 700 W; PERF.md section 6), printed beside this run's.
 K2_MS_BEFORE = {"config 5": (6.6740, 5.7714, 3.9459),
                 "config 5 compressed": (6.5419,)}
+# K1's ms per launch before its redesign (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md section 6), printed beside this run's.
+K1_MS_BEFORE = {"config 3": 2.3084, "config 9": 8.2544, "windowed 3": 2.1226,
+                "config 7 cut": 11.3229, "config 8": 6.0435,
+                "config 10": 13.2461, "config 8 compressed": 4.5239}
 
 
 def _log(msg: str) -> None:
@@ -237,6 +246,17 @@ def _bound(card: str, name: str, visits: int, nbytes: int,
          f"3.35 TB/s = {bytes_ms:.4f} ms; bound {max(ops_ms, bytes_ms):.4f} "
          f"ms ({by})")
     return max(ops_ms, bytes_ms), by
+
+
+def _k1_vs_before(card: str, what: str, ms: float,
+                  bound: tuple[float, str]) -> None:
+    """One K1 launch's ms beside its ms before the redesign, and both
+    against this run's bound."""
+    before = K1_MS_BEFORE[what]
+    _log(f"[{what} K1 vs before] {card}: {ms:.4f} ms per launch, "
+         f"{before:.4f} before the redesign ({before / ms:.2f}x); at "
+         f"{bound[0] / ms:.3f} of the bound {bound[0]:.4f} ms ({bound[1]}), "
+         f"was {bound[0] / before:.3f}")
 
 
 def _check_rows(ccount, vis) -> list[int]:
@@ -430,6 +450,7 @@ def phase_config9(card, ivp, cfg, counted, geo):
     bound = _bound(card, "config 9", int(k_vis.sum()),
                    _nbytes(*rows, meta, tables, opts["corners"])
                    + geo["pw"] * geo["ph"] * 12 + 2 * n_rows * 4, True)
+    _k1_vs_before(card, "config 9", kernel_ms, bound)
     return _entry("tile_trace_fused_compressed",
                   "fused, compressed grid_su", launches, err, kernel_ms,
                   plain_ms, bound)
@@ -509,6 +530,7 @@ def phase_windowed3(card, scene, ivp, cfg, counted, img_fused,
     bound = _bound(card, "windowed 3", int(k[2].sum()),
                    _nbytes(ccand, ccount, centry, frus, raymat, meta, tables)
                    + 2 * _nbytes(*carry), False)
+    _k1_vs_before(card, "windowed 3", kernel_ms, bound)
     return _entry("tile_trace_windowed", "windowed, fused=False", launches,
                   err, kernel_ms, plain_ms, bound)
 
@@ -599,6 +621,7 @@ def phase_windowed7(card, ivp, cfg, counted):
     bound = _bound(card, "config 7 cut", int(k[2].sum()),
                    _nbytes(ccand, ccount, centry, frus, raymat, meta, tables,
                            opts["corners"]) + 2 * _nbytes(*carry), True)
+    _k1_vs_before(card, "config 7 cut", kernel_ms, bound)
     entry = _entry("tile_trace_windowed_compressed",
                    "windowed, compressed grid_su", launches, err, kernel_ms,
                    plain_ms, bound)
@@ -780,6 +803,7 @@ def _merged_check(card, name, scene, ring, ivp, cfg, img_main):
                            opts.get("corners")) + _nbytes(k_out, k_vis,
                                                           k_elig),
                    bool(opts))
+    _k1_vs_before(card, name, kernel_ms, bound)
     return (max(err_t, err_n), kernel_ms, plain_ms, bound, stages,
             nonempty if rows is None else len(rows))
 
@@ -1159,6 +1183,16 @@ def _pt_frames(tracer, ivps, name, kernels):
     return out, got[k2]
 
 
+def _frame_stages(tracer, ivp) -> dict:
+    """ms of each stage of one path-traced frame (CUDA events, summed
+    over bounces)."""
+    timings = {}
+    tracer.render(ivp, timings=timings)
+    torch.cuda.synchronize()
+    return {k: sum(s.elapsed_time(e) for s, e in v)
+            for k, v in timings.items()}
+
+
 def _pt_gate(a, b) -> dict:
     """bench.py's config-5 gate between two frames (bench.py:583-584)."""
     from rtmm_tpu_torch.utils.gate import image_gate
@@ -1280,11 +1314,7 @@ def phase_config5(card):
 
     orbit_once()
     orbit_ms = _events_ms(orbit_once, reps=1, rounds=2) / PT_ORBIT
-    timings = {}
-    tracer.render(ivp, timings=timings)
-    torch.cuda.synchronize()
-    stages = {k: sum(s.elapsed_time(e) for s, e in v)
-              for k, v in timings.items()}
+    stages = _frame_stages(tracer, ivp)
 
     o1, d1, l1, cfg_b = rec["traces"][0]
     k2_trace_ms = _events_ms(lambda: group_trace.trace_sorted(
@@ -1351,13 +1381,17 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
         tracer.render(ivp)
 
     frame_once()
-    frame_ms = _events_ms(frame_once, reps=1, rounds=3)
-    _log(f"[config 5 compressed time] {card}: frame {frame_ms:.4f} ms; K2 "
-         f"bounce-1 launch {first['ms']:.4f} ms for {first['visits']} "
-         f"visits; plain K2 {first['plain_ms']:.1f} ms on {first['groups']} "
-         "groups")
+    frame_ms = _events_ms(frame_once, reps=1, rounds=5)
+    stages = _frame_stages(tracer, ivp)
+    _log(f"[config 5 compressed time] {card}: frame {frame_ms:.4f} ms; "
+         "stages of one frame (CUDA events): "
+         + "; ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+         + f"; K2 bounce-1 launch {first['ms']:.4f} ms for "
+         f"{first['visits']} visits; plain K2 {first['plain_ms']:.1f} ms on "
+         f"{first['groups']} groups")
     return _k2_entry("group_trace_compressed", k2_launches, checks,
                      k2_ms_per_bounce=k2_per_bounce, frame_ms=frame_ms,
+                     stages_ms=stages,
                      mib=scene.device_bytes() / 2**20,
                      mib_precomputed=bytes5 / 2**20, verify=gate)
 
@@ -1392,6 +1426,14 @@ def main() -> int:
          f"{time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         _log(f"[ptxas {name}]\n{_build.ptxas_report(name).strip()}")
+    bad, n_rcp = tile_trace.reciprocal_check("cuda")
+    _log(f"[reciprocal] the tile kernel's branch-free 1/x against 1.0f / x "
+         f"on all {n_rcp} float32 inputs in its range: {bad} differ")
+    if bad:
+        raise RuntimeError("the tile kernel's reciprocal is not exact")
+    for name, occ in tile_trace.occupancy().items():
+        _log(f"[occupancy {name}] " + ", ".join(f"{k} {v}"
+                                                for k, v in occ.items()))
 
     # -- 2. scene ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1533,6 +1575,9 @@ def main() -> int:
          f"{nbytes / 1e6:.2f} MB / 3.35 TB/s = {bytes_ms:.4f} ms; bound "
          f"{bound_ms:.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}); "
          f"kernel at {bound_ms / kernel_ms:.3f} of it")
+    _k1_vs_before(card, "config 3", kernel_ms, (bound_ms, "operations"
+                                                if ops_ms >= bytes_ms
+                                                else "bytes"))
 
     kernels = [_entry("tile_trace_fused", "fused, in-kernel raygen",
                       launches, max_abs_err, kernel_ms, plain_ms,

@@ -62,6 +62,13 @@ TILE = culling.TILE_H * culling.TILE_W
 UPC = culling.UNITS_PER_CLUSTER
 LPU = 64
 MAX_SUB = 8
+# The ray rows [d, m'] that the det column sums over: its moment rows are
+# zero by construction ([-n] over d, [0] over m'), and the kernel sums only
+# the first three, left to right. Dropping a +-0 * x term changes a sum
+# only where the partial sum is exactly +-0 (-0 + +0 is +0, and the sign of
+# det sets the sign of 1/det) or x is inf or NaN; both versions drop the
+# same terms (tests/test_torch_k1_terms.py holds them to all six rows).
+DET_ROWS = 3
 # Tile rows per launch in render_frames: 32 frames of 1080p (2,040 tiles
 # each) fit in one launch; the rgb output is then ~0.8 GB of float32.
 BATCH_TILE_CAP = 65536
@@ -232,13 +239,13 @@ def _trace_tile_plain(fr, rays, raygen, ccand_row, centry_row, cnt, meta,
                 my - (cz * dx - cx * dz),
                 mz - (cx * dy - cy * dx))
 
-        def contract(qb):
+        def contract(qb, n_rows=6):
             acc = qb[0][:, None] * rows[0][None, :]
-            for r in range(1, 6):
+            for r in range(1, n_rows):
                 acc = acc + qb[r][:, None] * rows[r][None, :]
             return acc                                  # (LPU, TILE)
 
-        det = contract(qd)
+        det = contract(qd, DET_ROWS)
         iv = _f32.rdiv(1.0, det)
         uu = contract(qu) * iv
         vv = contract(qv) * iv
@@ -372,10 +379,11 @@ def _plain_walks(ccand, ccount, centry, frus, raymat, meta, tables, cfg,
 def trace_fused_plain(ccand, ccount, centry, frus, meta, tables,
                       cfg: RenderConfig, *, tiles_per_frame: int, tx: int,
                       pw: int, ph: int, raymat=None, compressed=False,
-                      corners=None):
+                      corners=None, rows=None):
     """Plain-PyTorch version of the fused trace kernel (same inputs and
     outputs as trace_fused). Runs on any device; on the card it is only
-    the kernel's yardstick."""
+    the kernel's yardstick. rows: trace only these tile rows (the others
+    stay background with zero counts, as empty tiles do)."""
     dev = frus.device
     n_rows = frus.shape[0]
     n_frames = n_rows // tiles_per_frame
@@ -391,7 +399,7 @@ def trace_fused_plain(ccand, ccount, centry, frus, meta, tables,
 
     for n, rays, (bt, bn, nv, ne) in _plain_walks(
             ccand, ccount, centry, frus, raymat, meta, tables, cfg, fresh,
-            compressed, corners):
+            compressed, corners, rows):
         # Epilogue: normalise the selected normal, shade against -d.
         nn = torch.clamp_min(
             torch.sqrt(bn[0] * bn[0] + bn[1] * bn[1] + bn[2] * bn[2]), 1e-20)
@@ -556,6 +564,44 @@ def _raise_on(rc, err_str):
     if rc != 0:
         raise RuntimeError("tile_trace kernel launch failed: "
                            + err_str(rc).decode())
+
+
+OCCUPANCY_KEYS = ("registers", "local_bytes", "shared_bytes",
+                  "blocks_per_sm", "threads", "rays_per_thread")
+
+
+def occupancy() -> dict:
+    """For each kernel entry of KERNELS, its CUDA instantiation as the
+    runtime reports it on the current card: registers per thread, local
+    (spill) bytes per thread, static shared bytes, resident blocks per SM,
+    threads per block and rays per thread."""
+    from . import _build
+    lib = _build.load("tile_trace")
+    fn = lib.rtmm_tile_trace_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = len(OCCUPANCY_KEYS)
+    out = (ctypes.c_int * (n * len(KERNELS)))()
+    _raise_on(fn(out), _lib()[3])
+    return {name: dict(zip(OCCUPANCY_KEYS, out[n * j:n * (j + 1)]))
+            for j, name in enumerate(KERNELS)}
+
+
+def reciprocal_check(device) -> tuple[int, int]:
+    """The kernel's branch-free reciprocal (rcp_newton in
+    csrc/tile_trace.cu) against the correctly rounded 1.0f / x on every
+    float32 bit pattern in its range, on the card: (mismatches, inputs
+    in range). The kernel is exact where the first is 0."""
+    from . import _build
+    fn = _build.load("tile_trace").rtmm_tile_trace_rcp_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        rc = fn(out.data_ptr(),
+                torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(rc, _lib()[3])
+    return int(out[0]), int(out[1])
 
 
 def trace_fused(ccand, ccount, centry, frus, meta, tables,

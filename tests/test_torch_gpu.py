@@ -31,6 +31,24 @@ SCENES = [  # (subdivisions, level, width, height): the CPU tests' scenes
     (0, 2, 128, 64),
     (1, 3, 256, 64),
 ]
+# Sub-cone grids (sub_frusta, sub_rows) and frame sizes of the kernel's
+# ray-to-thread map: the default 4 x 1 grid, and 8 sub-cones in 2 rows on
+# a 100x80 frame, whose last tile row and column are partly padded and
+# whose corner tiles hold no cluster (rows with ccount 0).
+GRIDS = {"sub4": (4, 1, None), "sub8_padded": (8, 2, (100, 80))}
+
+
+def _grid_cfg(grid, w, h, **kw):
+    nsub, nrows, size = GRIDS[grid]
+    w, h = size or (w, h)
+    return RenderConfig(width=w, height=h, sub_frusta=nsub, sub_rows=nrows,
+                        **kw), w, h
+
+
+def _has_empty_rows(grid, ccount):
+    """The padded grid's frames must hold rows with no cluster."""
+    if GRIDS[grid][2] is not None:
+        assert bool((ccount == 0).any()) and bool((ccount > 0).any())
 
 
 @pytest.fixture
@@ -52,12 +70,14 @@ def _scene(sub, level, device):
     return scene_mod.build_device_scene(mesh, device=device)
 
 
+@pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("sub,level,w,h", SCENES)
-def test_kernel_matches_plain(cuda, sub, level, w, h):
+def test_kernel_matches_plain(cuda, sub, level, w, h, grid):
     scene = _scene(sub, level, cuda)
-    cfg = RenderConfig(width=w, height=h)
+    cfg, w, h = _grid_cfg(grid, w, h)
     rows = tile_trace.frame_inputs(scene, _ivp(w, h), cfg,
                                    tile_trace.clusters_per_window(scene, cfg))
+    _has_empty_rows(grid, rows[1])
     pw, ph = tiled.padded_size(w, h)
     geo = dict(tiles_per_frame=(pw // 32) * (ph // 32), tx=pw // 32,
                pw=pw, ph=ph)
@@ -76,6 +96,14 @@ def test_kernel_matches_plain(cuda, sub, level, w, h):
     # Same float32 operations in the same order (nvcc -fmad=false); only
     # exact-t ties may sum winner normals in another order.
     assert gate["maxdiff"] <= 1e-5, gate
+
+
+def test_kernel_reciprocal_is_exact(cuda):
+    """The tile kernel's branch-free reciprocal equals 1.0f / x on every
+    float32 input in its range: normal x with |x| < 2^126, both signs."""
+    bad, n = tile_trace.reciprocal_check(cuda)
+    assert n == 2 * 252 * 2**23
+    assert bad == 0
 
 
 def test_render_frames_equals_frames(cuda):
@@ -125,14 +153,16 @@ def _check_image(k_img, p_img, w, h):
     assert gate["maxdiff"] <= 1e-5, gate
 
 
+@pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("name", sorted(COMPRESSED))
-def test_compressed_kernel_matches_plain(cuda, name):
+def test_compressed_kernel_matches_plain(cuda, name, grid):
     make, w, h = COMPRESSED[name]
     scene = scene_mod.build_device_scene(make(), compressed=True,
                                          device=cuda)
-    cfg = RenderConfig(width=w, height=h)
+    cfg, w, h = _grid_cfg(grid, w, h)
     rows = tile_trace.frame_inputs(scene, _ivp(w, h), cfg,
                                    tile_trace.clusters_per_window(scene, cfg))
+    _has_empty_rows(grid, rows[1])
     meta, tables, opts = tile_trace.scene_tables(scene)
     pw, ph = tiled.padded_size(w, h)
     geo = dict(tiles_per_frame=(pw // 32) * (ph // 32), tx=pw // 32,
@@ -149,19 +179,20 @@ def test_compressed_kernel_matches_plain(cuda, name):
     _check_image(k_img[0], p_img[0], w, h)
 
 
+@pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("compressed", [False, True])
-def test_windowed_kernel_matches_plain(cuda, compressed):
+def test_windowed_kernel_matches_plain(cuda, compressed, grid):
     """One window's launch at equal carries, then a whole windowed frame
     against the fused frame of the same scene."""
     mesh = procedural.make_icosphere(subdivisions=2, level=3, amplitude=0.1)
     scene = scene_mod.build_device_scene(mesh, compressed=compressed,
                                          device=cuda)
-    w, h = 128, 64
-    cfg = RenderConfig(width=w, height=h, kernel_clusters_per_window=2)
+    cfg, w, h = _grid_cfg(grid, 128, 64, kernel_clusters_per_window=2)
     fi, frus, raymat = tile_trace.ray_frame_inputs(scene, _ivp(w, h), cfg)
     meta, tables, opts = tile_trace.scene_tables(scene)
     ccand, ccount, centry, _, _ = tiled.cluster_window(
         scene, fi.apex, fi.cluster_hit, 2)
+    _has_empty_rows(grid, ccount)
     n = frus.shape[0]
     carry = (torch.full((n, 1024), tile_trace.BIG, device=cuda),
              torch.zeros((n, 3, 1024), device=cuda),
@@ -177,12 +208,14 @@ def test_windowed_kernel_matches_plain(cuda, compressed):
                                         carry, meta, tables, cfg, **opts)
     assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
     assert int(k[2].sum()) > 0
-    assert float((k[0] - p[0]).abs().max()) <= 1e-5
+    assert torch.equal(k[0], p[0])
     assert float((k[1] - p[1]).abs().max()) <= 1e-5
     img, st = tile_trace.render_frame(scene, _ivp(w, h), cfg,
                                       with_stats=True)
     fused, st1 = tile_trace.render_frame(
-        scene, _ivp(w, h), RenderConfig(width=w, height=h), with_stats=True)
+        scene, _ivp(w, h), dataclasses.replace(
+            cfg, kernel_clusters_per_window=RenderConfig()
+            .kernel_clusters_per_window), with_stats=True)
     assert st["windows"] > 1 and st1["windows"] == 1
     _check_image(img, fused, w, h)
 
@@ -211,21 +244,22 @@ def _ivp_far(w, h):
     return camera.inv_view_proj(tb, w, h)
 
 
+@pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("compressed", [False, True])
 @pytest.mark.parametrize("kernel_raygen", [True, False])
-def test_raw_kernel_matches_plain(cuda, compressed, kernel_raygen):
+def test_raw_kernel_matches_plain(cuda, compressed, kernel_raygen, grid):
     """The rows of a merged launch over three non-identity instances:
     the raw kernel against its plain version, with the in-kernel object
     transform and with a ray-matrix input."""
     mesh = procedural.make_icosphere(subdivisions=1, level=3, amplitude=0.12)
     scene = scene_mod.build_device_scene(mesh, compressed=compressed,
                                          device=cuda)
-    w, h = 96, 64
-    cfg = RenderConfig(width=w, height=h, kernel_raygen=kernel_raygen)
+    cfg, w, h = _grid_cfg(grid, 96, 64, kernel_raygen=kernel_raygen)
     ivp = _ivp_far(w, h)
     world = inst_mod.world_frame(ivp, cfg, cuda)
     launch = inst_mod.merged_launch_inputs(
         scene, *inst_mod.instance_tensors(RING, cuda), ivp, world, cfg)
+    _has_empty_rows(grid, launch.ccount)
     meta, tables, opts = tile_trace.scene_tables(scene)
     args = (launch.ccand, launch.ccount, launch.centry, launch.frus, meta,
             tables, cfg)
