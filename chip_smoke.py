@@ -64,7 +64,31 @@ Phases (any failure raises and exits non-zero):
  15. config 5 compressed (K1d + K1c, K2 compressed): counted frames, K2
      against its plain version on every launch of frame 0 as in phase 14,
      the frame within the gate of phase 14's, the frame's stage times,
-     MiB of both scenes.
+     MiB of both scenes;
+ 16. the per-ray reference backend (pipeline "ray") on config 3 at 1080p,
+     the scene rebuilt with its hierarchy tables: frame ms (CUDA events
+     over 2 calls of the default 8 candidates per ray), Mrays/s, peak
+     memory; that frame within the two-tier gate of phase 3's K1a frame
+     on the pixels whose rays enter at most 8 triangle AABBs, with no big
+     pixel among them and equal there to the exact frame below; then
+     with as many candidates as the most AABBs a ray of the frame enters
+     (no candidate cut: exact), the frame within the two-tier gate of
+     K1a's and the tessellated (-T) scene's per-ray frame against it at
+     RMSE <= 1e-3; one chunk's launches and device busy share under
+     torch.profiler; no kernel launches;
+ 17. stats, counted (K1a): the step heatmap at 1080p, collect_frame_stats
+     with its own heatmap (traversal_steps_total equal to the heatmap's
+     sum), the kernel visits of --stats' path equal to the pin, and a
+     torch.profiler trace of one 32-frame orbit with the device's busy
+     share of the traced window;
+ 18. the path tracer's perray engine on config 5's scene with its
+     hierarchy at phase 14's 256x256 gate frame, against the pallas engine
+     (K1d, K2; counted) within bench.py:583-584's budgets; frame ms;
+ 19. the debug render on config 3 at 1080p (clean: passes; one NaN planted
+     in leaf_verts: FloatingPointError), the scene cache (the second build
+     a load, its tables and its K1a frame bit-equal to the first and to
+     phase 3's), and the viewer's headless orbit writing 2 frames at
+     1080p (K1a, counted).
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
@@ -1396,6 +1420,280 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
                      mib_precomputed=bytes5 / 2**20, verify=gate)
 
 
+def _save_config3(tmp: str) -> str:
+    """Write bench config 3's asset (a 1,280-base-triangle subdiv-3
+    icosphere, level 3) as .gltf + .bary under tmp; returns the .gltf."""
+    from rtmm_tpu_torch.io import loader
+    from rtmm_tpu_torch.models import procedural
+    path = f"{tmp}/sphere3_l3.gltf"
+    loader.save_gltf_bary(procedural.make_icosphere(
+        subdivisions=3, level=3, amplitude=0.12), path)
+    return path
+
+
+def _png_frames(path: str, n: int, prefix: str) -> list:
+    from rtmm_tpu_torch.io import image as image_io
+    return [image_io.read_png(os.path.join(path, f"{prefix}_{i:04d}.png"))
+            for i in range(n)]
+
+
+def phase_perray(card, mesh, img_main, ivp, cfg):
+    """Config 3 through the per-ray reference backend at 1080p."""
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.ops import raygen, shading, traversal
+    from rtmm_tpu_torch.render.renderer import Renderer, _pick_chunk
+    from rtmm_tpu_torch.utils import stats
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    t0 = time.perf_counter()
+    scene = scene_mod.build_device_scene(mesh, hierarchy=True, device="cuda")
+    scene_t = scene_mod.build_device_scene(mesh, tessellated=True,
+                                           device="cuda")
+    torch.cuda.synchronize()
+    _log(f"[perray scene] config 3 with hierarchy tables: "
+         f"{scene.device_bytes() / 2**20:.1f} MiB on the card; -T "
+         f"{scene_t.device_bytes() / 2**20:.1f} MiB; build "
+         f"{time.perf_counter() - t0:.1f} s")
+    cfg_ray = dataclasses.replace(cfg, pipeline="ray")
+    chunk = _pick_chunk(cfg_ray, scene)
+    _reset_all()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ray = Renderer(scene, cfg_ray)
+    frames = []
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        frames.append(ray.render(ivp))
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / 2
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.equal(frames[1], frames[0]):
+        raise RuntimeError("per-ray: two renders of one frame differ")
+    img8 = frames[0]
+    # The candidate cut: the base-triangle AABBs each ray enters.
+    o, d = raygen.generate_rays(ivp, cfg.width, cfg.height,
+                                device=scene.device)
+    enters = {name: torch.cat([traversal.aabb_hit_counts(
+        s, o[c:c + chunk], d[c:c + chunk]) for c in range(0, len(o), chunk)])
+        for name, s in (("micromesh", scene), ("-T", scene_t))}
+    k_all = max(int(e.max()) for e in enters.values())
+    cfg_all = dataclasses.replace(cfg_ray, max_candidates=k_all)
+    img, ms_all = _timed(lambda: Renderer(scene, cfg_all).render(ivp))
+    img_t = Renderer(scene_t, cfg_all).render(ivp)
+    # Launches of one chunk of the default frame (the same ops for every
+    # chunk: no host branch inside one), and the device's share of them.
+    mid = (len(o) // chunk // 2) * chunk
+    oc, dc = o[mid:mid + chunk], d[mid:mid + chunk]
+    traversal.trace(scene, oc, dc, cfg_ray)
+    with tempfile.TemporaryDirectory() as logdir:
+        with stats.profiler_trace(logdir):
+            t, nrm, hit = traversal.trace(scene, oc, dc, cfg_ray)
+            shading.shade_or_miss(hit, nrm, -dc, cfg_ray)
+        busy = stats.device_busy(logdir)
+    torch.cuda.synchronize()
+    _expect_launches("per-ray frames", {})
+    n = cfg.width * cfg.height
+    n_chunks = -(-n // chunk)
+    # The default frame: exact wherever a ray enters at most
+    # max_candidates AABBs, and every big pixel where one enters more.
+    within = (enters["micromesh"] <= cfg.max_candidates).reshape(
+        cfg.height, cfg.width)
+    gate8_all = image_gate(img8, img_main)
+    gate8 = image_gate(img8, img_main, mask=within)
+    big8 = (img8 - img_main).abs().amax(dim=-1) > 0.25
+    stray = int((big8 & within).sum())
+    same = torch.equal(img8[within], img[within])
+    gate = image_gate(img, img_main)
+    rmse = float(torch.sqrt(((img - img_t) ** 2).mean()))
+    over = int((~within).sum())
+    _log(f"[perray] {card}: config 3 1080p through pipeline ray, "
+         f"{cfg.max_candidates} candidates per ray: {ms:.4f} ms per frame "
+         f"(CUDA events over 2 calls), {n / (ms * 1e-3) / 1e6:.4f} Mrays/s; "
+         f"{n_chunks} chunks of {chunk} rays; peak memory "
+         f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held "
+         f"before")
+    _log(f"[perray launches] {card}: one {chunk}-ray chunk (trace + shade) "
+         f"under the profiler: {busy['kernels']} kernel events, so "
+         f"{busy['kernels'] * n_chunks} per frame over {n_chunks} chunks; "
+         f"device busy {busy['busy_us'] / 1e3:.4f} ms of a "
+         f"{busy['window_us'] / 1e3:.4f} ms traced window: busy share "
+         f"{busy['share']}")
+    _log(f"[perray cut] {over} rays enter more than {cfg.max_candidates} "
+         f"triangle AABBs (at most {k_all}); against phase 3's K1a frame: "
+         f"all pixels {gate8_all}; the {n - over} pixels within the cut "
+         f"{gate8}; big pixels within the cut: {stray}; equal there to the "
+         f"{k_all}-candidate frame: {same}")
+    _log(f"[perray exact] {card}: {k_all} candidates per ray (the most "
+         f"AABBs a ray enters): {ms_all:.1f} ms (host clock); against phase "
+         f"3's K1a frame: {gate}; -T per-ray frame against it: RMSE "
+         f"{rmse:.3e} (limit 1e-3)")
+    if not all(bool(torch.isfinite(x).all()) for x in (img8, img, img_t)):
+        raise RuntimeError("per-ray frames are not finite")
+    if not gate8["ok"] or stray or not same:
+        raise RuntimeError(f"per-ray frame at {cfg.max_candidates} "
+                           f"candidates: gate within the cut {gate8}, "
+                           f"{stray} big pixels within it, equal to the "
+                           f"exact frame there: {same}")
+    if not gate["ok"]:
+        raise RuntimeError(f"per-ray frame fails the gate: {gate}")
+    if rmse > 1e-3:
+        raise RuntimeError(f"per-ray micromesh vs -T: RMSE {rmse:.3e}")
+    if not busy["kernels"] or busy["share"] is None:
+        raise RuntimeError(f"the per-ray chunk's trace holds no CUDA kernel "
+                           f"event: {busy}")
+    return scene
+
+
+def phase_stats(card, scene, ivp, ivps, cfg):
+    """The stats path at 1080p: heatmap, FrameStats, the kernel's visits,
+    and a profiler trace of one orbit, counted."""
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.utils import stats
+
+    _reset_all()
+    t0 = time.perf_counter()
+    hm = stats.traversal_heatmap(scene, ivp, cfg)
+    hm_s = time.perf_counter() - t0
+    fs = stats.collect_frame_stats(scene, ivp, cfg)
+    _img, kst = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
+    visits = int(kst["kernel_unit_visits"].sum())
+    eligible = int(kst["kernel_unit_eligible"].sum())
+    with tempfile.TemporaryDirectory() as logdir:
+        with stats.profiler_trace(logdir):
+            tile_trace.render_frames(scene, ivps, cfg)
+        busy = stats.device_busy(logdir)
+    torch.cuda.synchronize()
+    _expect_launches("stats path", {"tile_trace_fused": 4})
+    _log(f"[stats] heatmap {hm.shape} in {hm_s:.1f} s: {int(hm.sum())} "
+         f"steps, max {int(hm.max())} per ray, "
+         f"{int((hm > 0).sum())} pixels with work; FrameStats "
+         f"{fs.as_dict()}; kernel visits {visits} of {eligible} eligible "
+         f"(pin {EXPECTED_VISITS}, bench.py:264)")
+    _log(f"[stats profiler] {card}: one {ORBIT_FRAMES}-frame orbit "
+         f"(render_frames): {busy['kernels']} kernel events, device busy "
+         f"{busy['busy_us'] / 1e3:.4f} ms of a {busy['window_us'] / 1e3:.4f} "
+         f"ms traced window: busy share {busy['share']}")
+    if hm.shape != (cfg.height, cfg.width) or not hm.max() > 0:
+        raise RuntimeError(f"heatmap malformed: {hm.shape}")
+    if fs.traversal_steps_total != int(hm.sum()):
+        raise RuntimeError(f"traversal_steps_total {fs.traversal_steps_total}"
+                           f" != heatmap sum {int(hm.sum())}")
+    if visits != EXPECTED_VISITS:
+        raise RuntimeError(f"--stats kernel visits {visits} != "
+                           f"{EXPECTED_VISITS}")
+    if not busy["kernels"] or busy["share"] is None:
+        raise RuntimeError(f"the profiler trace holds no CUDA kernel event: "
+                           f"{busy}")
+
+
+def phase_perray_engine(card, mesh5):
+    """Config 5's scene with its hierarchy: the perray engine against the
+    pallas engine at the 256x256 gate frame."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.render import pathtrace
+
+    scene = scene_mod.build_device_scene(mesh5, hierarchy=True,
+                                         device="cuda")
+    cfg = RenderConfig(width=PT_VERIFY, height=PT_VERIFY, sub_frusta=8)
+    ivp = _camera(25.0, cfg)
+    pt = pathtrace.PathTraceConfig(bounces=PT_BOUNCES,
+                                   samples_per_pixel=PT_SPP, engine="perray")
+    perray = pathtrace.PathTracer(scene, cfg, pt)
+    _reset_all()
+    (a, sa), ms = _timed(lambda: perray.render(ivp))
+    _expect_launches("perray engine", {})
+    b, sb = pathtrace.PathTracer(scene, cfg, dataclasses.replace(
+        pt, engine="pallas")).render(ivp)
+    torch.cuda.synchronize()
+    _expect_launches("pallas engine", {"tile_trace_raw": 1,
+                                       "group_trace": None})
+    gate = _pt_gate(a, b)
+    dlive = float((sa["live_rays_per_bounce"]
+                   - sb["live_rays_per_bounce"]).abs().max())
+    (_, _), ms2 = _timed(lambda: perray.render(ivp))
+    _log(f"[perray engine] {card}: config 5 at {PT_VERIFY}x{PT_VERIFY}, "
+         f"{PT_BOUNCES} bounces, {PT_SPP} spp, {pt.ray_chunk}-ray chunks: "
+         f"frame {ms:.4f} / {ms2:.4f} ms (host clock, synchronized); "
+         f"against the pallas engine: {gate}; live "
+         f"{sa['live_rays_per_bounce'].tolist()} vs "
+         f"{sb['live_rays_per_bounce'].tolist()} (max |diff| {dlive}); "
+         f"overflow {sa['overflow_groups_per_bounce'].tolist()}")
+    if not gate["ok"] or dlive > 4:
+        raise RuntimeError(f"perray vs pallas engine: {gate}, {dlive}")
+
+
+def phase_debug_cache(card, scene, img_main, ivp, cfg):
+    """The debug render, the scene cache and the viewer's headless orbit
+    on config 3 at 1080p."""
+    from rtmm_tpu_torch.io import loader
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.render.renderer import Renderer
+    from rtmm_tpu_torch.utils import cache
+    from rtmm_tpu_torch.utils.debug import debug_render
+    from rtmm_tpu_torch.utils.gate import image_gate
+    from rtmm_tpu_torch.viewer import Viewer
+
+    _reset_all()
+    img, ms = _timed(lambda: debug_render(scene, ivp, cfg))
+    lv = scene.leaf_verts.clone()
+    lv.reshape(-1)[int(torch.nonzero(lv.reshape(-1))[12345])] = float("nan")
+    try:
+        debug_render(dataclasses.replace(scene, leaf_verts=lv), ivp, cfg)
+    except FloatingPointError as exc:
+        caught = str(exc)
+    else:
+        raise RuntimeError("debug_render missed a NaN in leaf_verts")
+    _expect_launches("debug render", {})
+    gate = image_gate(img, img_main)
+    _log(f"[debug] clean config 3 at 1080p passes in {ms:.1f} ms (host "
+         f"clock; tile backend with guards), against phase 3's K1a frame: "
+         f"{gate}; NaN in leaf_verts: FloatingPointError '{caught}'")
+    if not gate["ok"]:
+        raise RuntimeError(f"debug render fails the gate: {gate}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _save_config3(tmp)
+        cdir = f"{tmp}/cache"
+        reads = []
+        load = loader.load_micromesh
+        loader.load_micromesh = lambda p: reads.append(p) or load(p)
+        try:
+            s1, ms1 = _timed(lambda: cache.build_device_scene_cached(
+                path, cache_dir=cdir))
+            s2, ms2 = _timed(lambda: cache.build_device_scene_cached(
+                path, cache_dir=cdir))
+        finally:
+            loader.load_micromesh = load
+        files = os.listdir(cdir)
+        same = all(
+            torch.equal(getattr(s1, f.name), getattr(s2, f.name))
+            if isinstance(getattr(s1, f.name), torch.Tensor)
+            else getattr(s1, f.name) == getattr(s2, f.name)
+            for f in dataclasses.fields(s1))
+        _reset_all()
+        img_c = tile_trace.render_frame(s2, ivp, cfg)
+        Viewer(Renderer(s2, cfg))._run_orbit(2, f"{tmp}/view")
+        torch.cuda.synchronize()
+        _expect_launches("cache and viewer", {"tile_trace_fused": 3})
+        views = _png_frames(f"{tmp}/view", 2, "view")
+    _log(f"[cache] build {ms1:.1f} ms (asset reads {len(reads)}), then "
+         f"{ms2:.1f} ms from {files}; tables bit-equal: {same}; K1a frame "
+         f"of the loaded scene bit-equal to phase 3's: "
+         f"{torch.equal(img_c, img_main)}; viewer orbit frames "
+         f"{[v.shape for v in views]}")
+    if len(reads) != 1 or len(files) != 1 or not same:
+        raise RuntimeError(f"cache: reads {reads}, files {files}, "
+                           f"equal {same}")
+    if not torch.equal(img_c, img_main):
+        raise RuntimeError("cache: the loaded scene renders another frame")
+    if any(v.shape != (cfg.height, cfg.width, 3) for v in views) or \
+            np.array_equal(views[0], views[1]):
+        raise RuntimeError("viewer: orbit frames malformed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1438,9 +1736,7 @@ def main() -> int:
     # -- 2. scene ----------------------------------------------------------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/sphere3_l3.gltf"
-        loader.save_gltf_bary(procedural.make_icosphere(
-            subdivisions=3, level=3, amplitude=0.12), path)
+        path = _save_config3(tmp)
         mesh = loader.load_micromesh(path)
     scene = scene_mod.build_device_scene(mesh, device="cuda")
     torch.cuda.synchronize()
@@ -1613,6 +1909,14 @@ def main() -> int:
     kernels.append(entry5)
     kernels.append(phase_config5_compressed(card, mesh5, cfg5, pt5, ivp5,
                                             img5, bytes5))
+    # -- 16-19. per-ray backend, stats, perray engine, debug and cache -------
+    t0 = time.perf_counter()
+    scene_h = phase_perray(card, mesh, img_main, ivp, cfg)
+    phase_stats(card, scene_h, ivp, ivps, cfg)
+    del scene_h
+    phase_perray_engine(card, mesh5)
+    phase_debug_cache(card, scene, img_main, ivp, cfg)
+    _log(f"[phases 16-19] {time.perf_counter() - t0:.1f} s")
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,9 +11,10 @@ frames are written as PNG.
     python -m rtmm_tpu_torch.app ... --device cpu       # plain PyTorch
     python -m rtmm_tpu_torch.app proc:sphere?level=3 --pathtrace 3 \
         --spp 2 --width 256 --height 256                 # path tracer
-
-Flags of features the port does not have yet exit with status 2 and say
-so.
+    python -m rtmm_tpu_torch.app proc:sphere?level=3 --pipeline ray  # per-ray
+    python -m rtmm_tpu_torch.app proc:sphere?level=3 --stats  # + heatmap PNG
+    python -m rtmm_tpu_torch.app a.gltf --cache         # scene cache
+    python -m rtmm_tpu_torch.app a.gltf --dump-bary     # .bary inspector
 """
 from __future__ import annotations
 
@@ -27,12 +28,16 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .io import bary as bary_mod
+from .io import gltf as gltf_mod
 from .io import image as image_io
 from .models import procedural, scene as scene_mod
+from .ops import tile_trace
 from .render import instances as inst_mod
 from .render import pathtrace
 from .render.renderer import FramePipeline, Renderer, _quantize
 from .utils import camera
+from .utils import stats as stats_mod
 
 
 def load_asset(path: str):
@@ -57,20 +62,6 @@ def load_asset(path: str):
         raise SystemExit(f"unknown procedural asset '{name}'")
     from .io import loader
     return loader.load_micromesh(path)
-
-
-def _not_ported(args) -> str | None:
-    """The message for the first flag of a later slice, or None."""
-    later = [
-        (args.cache, "--cache (scene cache)"),
-        (args.dump_bary, "--dump-bary (.bary inspector)"),
-        (args.stats and args.pathtrace == 0, "--stats (traversal heatmap)"),
-        (args.pipeline == "ray", "--pipeline ray (the per-ray backend)"),
-    ]
-    for flagged, what in later:
-        if flagged:
-            return f"{what} is not yet ported to rtmm_tpu_torch"
-    return None
 
 
 def main(argv=None) -> int:
@@ -98,7 +89,7 @@ def main(argv=None) -> int:
                         help="trace backend: auto and pallas are the tile "
                              "kernel (its plain version on the CPU); tile "
                              "is the kernel-free XLA tile backend; ray is "
-                             "not ported yet")
+                             "the per-ray reference backend")
     parser.add_argument("--compressed", action="store_true",
                         help="store only per-unit grid-vertex records and "
                              "derive each visited unit's tables in the "
@@ -123,20 +114,22 @@ def main(argv=None) -> int:
     parser.add_argument("--spp", type=int, default=4,
                         help="samples per pixel for --pathtrace")
     parser.add_argument("--stats", action="store_true",
-                        help="with --pathtrace: print the live rays per "
-                             "bounce")
-    # Flags of later slices (kept so that they fail clearly).
-    parser.add_argument("--cache", action="store_true")
-    parser.add_argument("--dump-bary", action="store_true")
+                        help="print per-frame traversal statistics and "
+                             "write a step heatmap PNG (with --pathtrace: "
+                             "the live rays per bounce)")
+    parser.add_argument("--cache", action="store_true",
+                        help="cache scene precompute keyed by asset hash")
+    parser.add_argument("--dump-bary", action="store_true",
+                        help="inspect the asset's .bary container (header, "
+                             "property table, group/triangle/value info) "
+                             "and exit")
     args = parser.parse_args(argv)
 
-    msg = _not_ported(args)
-    if msg:
-        print(msg, file=sys.stderr)
-        return 2
     if not args.asset.startswith("proc:") and not os.path.exists(args.asset):
         print("Micro-mesh file does not exist.", file=sys.stderr)
         return 1
+    if args.dump_bary:
+        return _dump_bary(args.asset)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available "
               "(use --device cpu for the plain PyTorch path)",
@@ -145,14 +138,28 @@ def main(argv=None) -> int:
 
     cfg = RenderConfig(width=args.width, height=args.height,
                        pipeline=args.pipeline)
+    # The per-node hierarchy tables feed only the per-ray reference backend
+    # (pipeline ray) and the --stats step-count heatmap; production renders
+    # skip building and uploading them.
+    hierarchy = args.pipeline == "ray" or args.stats
     t0 = time.perf_counter()
-    mesh = load_asset(args.asset)
-    print(f"loaded: {mesh.num_triangles} base triangles, "
-          f"max subdivision level {mesh.max_level}, "
-          f"uniform={mesh.has_uniform_subdivision_level()}")
-    ds = scene_mod.build_device_scene(mesh, tessellated=args.tessellated,
-                                      compressed=args.compressed,
-                                      device=args.device)
+    mesh = None
+    if args.cache and not args.asset.startswith("proc:"):
+        from .utils.cache import build_device_scene_cached
+        ds = build_device_scene_cached(args.asset,
+                                       tessellated=args.tessellated,
+                                       hierarchy=hierarchy,
+                                       compressed=args.compressed,
+                                       device=args.device)
+    else:
+        mesh = load_asset(args.asset)
+        print(f"loaded: {mesh.num_triangles} base triangles, "
+              f"max subdivision level {mesh.max_level}, "
+              f"uniform={mesh.has_uniform_subdivision_level()}")
+        ds = scene_mod.build_device_scene(mesh, tessellated=args.tessellated,
+                                          hierarchy=hierarchy,
+                                          compressed=args.compressed,
+                                          device=args.device)
     mode = ("tessellated" if args.tessellated
             else "compressed" if args.compressed else "micromesh")
     print(f"scene build: {time.perf_counter() - t0:.2f}s "
@@ -181,7 +188,10 @@ def main(argv=None) -> int:
                   args.distance)
 
     if args.compare_t:
+        if mesh is None:
+            mesh = load_asset(args.asset)
         ds_t = scene_mod.build_device_scene(mesh, tessellated=True,
+                                            hierarchy=hierarchy,
                                             device=args.device)
         ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
                                    cfg.fov_y_degrees, cfg.near, cfg.far)
@@ -212,12 +222,14 @@ def main(argv=None) -> int:
         written += 1
 
     t0 = time.perf_counter()
-    for _ in range(args.frames):
+    for frame in range(args.frames):
         ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
                                    cfg.fov_y_degrees, cfg.near, cfg.far)
         done = pipe.submit(ivp)
         if done is not None:
             write(done)
+        if args.stats:
+            _frame_stats(ds, ivp, cfg, args, frame)
         tb.rotation_euler[1] -= np.radians(args.orbit)
     for done in pipe.drain():
         write(done)
@@ -226,6 +238,42 @@ def main(argv=None) -> int:
           f"({args.frames * cfg.width * cfg.height / dt / 1e6:.2f} Mrays/s, "
           "PNG writes included)")
     return 0
+
+
+def _dump_bary(path: str) -> int:
+    """--dump-bary: print the .bary container of the asset (or of the
+    .gltf's NV displacement-micromap reference)."""
+    if path.endswith((".gltf", ".glb")):
+        resolved = gltf_mod.Gltf.load(path).micromap_uri()
+        if not resolved:
+            print("gltf has no NV displacement-micromap .bary reference",
+                  file=sys.stderr)
+            return 1
+        path = resolved
+    print(bary_mod.dump_bary(path))
+    return 0
+
+
+def _frame_stats(ds, ivp, cfg: RenderConfig, args, frame: int) -> None:
+    """--stats: the traversal-step heatmap (written as a PNG beside the
+    frames) and FrameStats; when the tile kernel renders the frame, its
+    exact per-tile unit visit and eligible counters too."""
+    hm = stats_mod.traversal_heatmap(ds, ivp, cfg)
+    print("  stats:",
+          stats_mod.collect_frame_stats(ds, ivp, cfg, heatmap=hm).as_dict())
+    hm_path = os.path.join(args.out, f"heatmap_{frame:04d}.png")
+    stats_mod.heatmap_to_png(hm_path, hm)
+    print(f"  heatmap: max {int(hm.max())} steps/ray -> {hm_path}")
+    if args.instances <= 1 and cfg.pipeline in ("auto", "pallas"):
+        _img, kst = tile_trace.render_frame(ds, ivp, cfg, with_stats=True)
+        kv = kst["kernel_unit_visits"].cpu().numpy()
+        ke = kst["kernel_unit_eligible"].cpu().numpy()
+        print(f"  kernel visits: {int(kv.sum())} (tile,unit) steps"
+              f" of {int(ke.sum())} eligible"
+              f" (slab pre-test skipped"
+              f" {int(ke.sum()) - int(kv.sum())}),"
+              f" max/tile {int(kv.max())},"
+              f" nonempty tiles {int((kv > 0).sum())}")
 
 
 def _path_trace(ds, cfg: RenderConfig, tb, args) -> int:

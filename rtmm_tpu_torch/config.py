@@ -9,13 +9,12 @@ recompiling shaders.
 Port note: this keeps the fields that define the reference semantics of
 the frame and of the ported backends: `pipeline` ("auto" and "pallas" are
 the hand-written tile kernel, on the CPU its plain version; "tile" is the
-kernel-free XLA tile backend), and that backend's `clusters_per_window`
-and `tile_chunk`. Dropped from the JAX package's RenderConfig:
-  * TPU-only knobs: `tiles_per_block`, `mt_precision` (the port computes
-    in float32 throughout), `compute_dtype`;
-  * fields of backends not ported yet: `max_candidates`, `ray_chunk`
-    (per-ray backend; pipeline "ray" is refused), `debug_guards`
-    (sanitizer).
+kernel-free XLA tile backend; "ray" the per-ray reference backend), that
+backend's `max_candidates` and `ray_chunk`, the tile backend's
+`clusters_per_window` and `tile_chunk`, and `debug_guards` (the
+sanitizer render, utils/debug.py). Dropped from the JAX package's
+RenderConfig, as TPU-only knobs: `tiles_per_block`, `mt_precision` (the
+port computes in float32 throughout), `compute_dtype`.
 """
 from __future__ import annotations
 
@@ -50,8 +49,14 @@ class RenderConfig:
     light_intensity: float = 22.0
 
     # Trace backend: "auto" / "pallas" = the tile-trace kernel (its plain
-    # version on the CPU); "tile" = the XLA tile backend (ops/tiled.py).
+    # version on the CPU); "tile" = the XLA tile backend (ops/tiled.py);
+    # "ray" = the per-ray reference backend (ops/traversal.py).
     pipeline: str = "auto"
+    # Per-ray backend: top-K candidate base triangles per ray, and rays
+    # per chunk (render/renderer.py::_pick_chunk scales it down for deep
+    # hierarchies to bound peak memory).
+    max_candidates: int = 8
+    ray_chunk: int = 16384
     # XLA tile backend: clusters consumed per candidate window (window
     # capacity = clusters_per_window * 64 units) and tiles per chunk.
     clusters_per_window: int = 4
@@ -79,6 +84,13 @@ class RenderConfig:
     # (0 = max(32, tiles // 8)); the merged launch sizes its one row pool
     # as instance_tile_cap * N (0 = tiles + 4 * N).
     instance_tile_cap: int = 0
+
+    # Sanitizer mode (utils/debug.py, the D3D12-debug-layer analog): guard
+    # the intentionally unguarded Möller-Trumbore reciprocal of the tile
+    # backend so a checked render stays NaN/Inf-free on clean scenes and
+    # only real data corruption fires. Production paths keep the
+    # unguarded division (the acceptance window rejects the Inf/NaN lanes).
+    debug_guards: bool = False
 
 
 DEFAULT_CONFIG = RenderConfig()

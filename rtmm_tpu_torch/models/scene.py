@@ -51,8 +51,9 @@ class DeviceScene:
     plane_b: torch.Tensor     # (T, 3)
     plane_n: torch.Tensor     # (T, 3)
     plane_o: torch.Tensor     # (T, 3)
-    # Hierarchy tables — read only by the per-ray reference backend (not
-    # ported yet); None when built with hierarchy=False.
+    # Hierarchy tables — read only by the per-ray reference backend
+    # (ops/traversal.py) and the step heatmap; None when built with
+    # hierarchy=False.
     node_verts: torch.Tensor | None   # (T, NI, 3, 2)
     node_minmax: torch.Tensor | None  # (T, NI, 2)
     node_pass: torch.Tensor | None    # (T, NI) bool
@@ -191,7 +192,9 @@ def build_device_scene(mesh: mesh_mod.MicroMesh, tessellated: bool = False,
 
     hierarchy=False (the default here) skips the per-node delta/min-max
     tables (node_verts/node_minmax/node_pass come back None): only the
-    per-ray reference backend reads them, and it is not ported yet.
+    per-ray reference backend (pipeline "ray", the path tracer's perray
+    engine, utils/stats.traversal_heatmap) reads them, so the kernel
+    paths skip building and uploading them.
 
     compressed=True builds the direct-tracing scene (ops/compressed.py):
     only per-unit grid-vertex records go to the device (~32 B per

@@ -403,7 +403,8 @@ def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
     w-form acceptance and the p-form t-window (p = t + s against [t_min +
     s, t_max + s], the upper side applied to the leaf minimum). Compressed
     scenes (q_frame None) derive the table per candidate from the unit's
-    record.
+    record. cfg.debug_guards guards the reciprocal and restores the
+    |det| >= MT_DET_EPS acceptance (the sanitizer render).
     """
     lpu = scene.leaves_per_unit
     unit = unit.to(torch.int64)
@@ -418,7 +419,14 @@ def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
                    - q[..., 2 * lpu:3 * lpu]], dim=-1)
     out = torch.bmm(recentered_raymat(raymat, centers), q)  # (nt, TILE, 5L)
     det = out[..., 0 * lpu:1 * lpu]
-    inv = _f32.rdiv(1.0, det)
+    if cfg.debug_guards:
+        # The sanitizer render (utils/debug.py): a guarded division and the
+        # reference's |det| >= EPS acceptance (intersection.hlsl:423), so
+        # clean scenes stay NaN/Inf-free and only corrupt data fires.
+        det_ok = torch.abs(det) >= intersect.MT_DET_EPS
+        inv = _f32.rdiv(1.0, torch.where(det_ok, det, 1.0))
+    else:
+        inv = _f32.rdiv(1.0, det)
     u = out[..., 1 * lpu:2 * lpu] * inv
     v = out[..., 2 * lpu:3 * lpu] * inv
     ww = out[..., 4 * lpu:5 * lpu] * inv
@@ -426,6 +434,8 @@ def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
     p = out[..., 3 * lpu:4 * lpu] * inv
     ok = ((torch.minimum(torch.minimum(u, v), ww) >= -intersect.MT_UV_EPS)
           & (p >= cfg.t_min + s) & in_range[:, None, None])
+    if cfg.debug_guards:
+        ok &= det_ok
     p = torch.where(ok, p, BIG)
     pb = p.amin(dim=2)                                    # (nt, TILE)
     tb = torch.where(pb <= cfg.t_max + s[..., 0], pb - s[..., 0], BIG)
@@ -453,19 +463,29 @@ def corner_lanes(scene: DeviceScene):
 
 
 def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
-                    cfg: RenderConfig):
+                    cfg: RenderConfig, check: Callable | None = None):
     """Trace one frame's primary rays with the XLA-backend windows.
 
     Tiles go in chunks of cfg.tile_chunk; a window's candidate slots run
     up to the chunk's largest count (the slots past every tile's count
     fold nothing, so stopping there is exact). Returns (best_t (tiles,
-    TILE) with BIG = miss, best_n (tiles, TILE, 3) unnormalised)."""
+    TILE) with BIG = miss, best_n (tiles, TILE, 3) unnormalised).
+
+    check(stage, tensor, bound=None), when given (the sanitizer render,
+    utils/debug.py), sees each window's candidate units (bound: the unit
+    count) and its running t and normals."""
     n_tiles = fi.raymat.shape[0]
     tile_chunk = max(1, min(n_tiles, cfg.tile_chunk))
     if n_tiles % tile_chunk:
         tile_chunk = n_tiles
+    window = 0
 
     def trace_window(cand, count, entry, best_t, best_n):
+        nonlocal window
+        window += 1
+        if check is not None:
+            check(f"window {window}: candidate units", cand,
+                  scene.num_units)
         bt_out, bn_out = [], []
         for c0 in range(0, n_tiles, tile_chunk):
             sl = slice(c0, c0 + tile_chunk)
@@ -479,7 +499,11 @@ def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
                 bn = torch.where(take[..., None], nb, bn)
             bt_out.append(bt)
             bn_out.append(bn)
-        return torch.cat(bt_out), torch.cat(bn_out)
+        best_t, best_n = torch.cat(bt_out), torch.cat(bn_out)
+        if check is not None:
+            check(f"window {window}: t", best_t)
+            check(f"window {window}: normals", best_n)
+        return best_t, best_n
 
     dev = fi.raymat.device
     init_t = torch.full((n_tiles, TILE), BIG, dtype=torch.float32,
@@ -492,14 +516,22 @@ def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
 
 
 def render_tiled(scene: DeviceScene, inv_view_proj,
-                 cfg: RenderConfig) -> torch.Tensor:
+                 cfg: RenderConfig, check: Callable | None = None
+                 ) -> torch.Tensor:
     """Render one frame through the XLA tile backend (the CLI's
-    --pipeline tile). Returns (H, W, 3) float32 on the scene's device."""
+    --pipeline tile). Returns (H, W, 3) float32 on the scene's device.
+    check: as xla_trace_frame's; it also sees the prologue's ray matrix,
+    frusta and per-frame table."""
     width, height = cfg.width, cfg.height
     pw, ph = padded_size(width, height)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
     fi = build_frame_inputs(scene, inv_view_proj, cfg, need_q_frame=True)
-    best_t, best_n = xla_trace_frame(scene, fi, cfg)
+    if check is not None:
+        for name in ("raymat", "apex", "normals", "sub_normals",
+                     "scene_aabb", "q_frame"):
+            if getattr(fi, name) is not None:
+                check(f"prologue: {name}", getattr(fi, name))
+    best_t, best_n = xla_trace_frame(scene, fi, cfg, check)
     hit = best_t < BIG
     nrm = best_n / torch.clamp_min(culling._norm(best_n, keepdim=True),
                                    1e-20)

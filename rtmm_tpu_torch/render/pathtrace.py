@@ -27,8 +27,9 @@ Secondary engines: "pallas" = the grouped trace kernel (ops/group_trace.py,
 csrc/group_trace.cu; its plain version on CPU tensors) with the tile
 kernel's raw or windowed mode for the primaries; "grouped" = the
 kernel-free engine (ops/grouped.py, with the XLA tile backend for the
-primaries); "auto" = pallas on a CUDA scene, grouped on a CPU scene. The
-per-ray engine ("perray") is not ported yet.
+primaries); "perray" = the per-ray reference backend (ops/traversal.py)
+for the primaries and every bounce, with no lane caps; "auto" = pallas on
+a CUDA scene, grouped on a CPU scene.
 
 The JAX package's render/pathtrace.py is the reference. Its TPU A/B knob
 RTMM_PT_HASHRAND (pre-drawn randoms) is not ported: the randoms are
@@ -46,7 +47,7 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
 from ..ops import (_f32, culling, group_trace, grouped, raygen, shading,
-                   tile_trace, tiled)
+                   tile_trace, tiled, traversal)
 from ..utils import threefry
 
 BIG = 1e30
@@ -59,8 +60,7 @@ class PathTraceConfig:
     bounces: int = 3
     samples_per_pixel: int = 4
     seed: int = 0
-    # Rays per chunk of the per-ray engine (not ported yet; kept so that
-    # configurations carry over).
+    # Rays per chunk of the per-ray engine.
     ray_chunk: int = 8192
     # t_max of bounce rays (>= the scene diagonal is lossless: bounce
     # origins lie on scene geometry). PathTracer fills it from the scene
@@ -149,13 +149,24 @@ def _resolve_engine(scene: DeviceScene, engine: str) -> str:
     if engine not in ENGINES:
         raise ValueError(f"unknown path-trace engine {engine!r}; one of "
                          f"{ENGINES}")
-    if engine == "perray":
-        raise NotImplementedError(
-            "the per-ray engine is not yet ported to rtmm_tpu_torch "
-            "(ROADMAP queue 1 item 10); use engine 'pallas' or 'grouped'")
+    if engine == "perray" and scene.compressed:
+        raise ValueError(
+            "the per-ray reference engine walks the hierarchy tables, "
+            "which compressed scenes do not build; use the grouped or "
+            "pallas engine (both derive the MT tables from grid records)")
     if engine == "auto":
         return "pallas" if scene.device.type == "cuda" else "grouped"
     return engine
+
+
+def _trace_chunked(scene: DeviceScene, origins, directions,
+                   cfg: RenderConfig, chunk: int):
+    """The per-ray backend over chunks of `chunk` rays. Returns (t (n,),
+    normal (n, 3), hit (n,)), t = cfg.t_max where a ray misses."""
+    outs = [traversal.trace(scene, origins[c0:c0 + chunk],
+                            directions[c0:c0 + chunk], cfg)
+            for c0 in range(0, origins.shape[0], chunk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def _trace_primary(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
@@ -228,14 +239,36 @@ def _rand2(key0, bounce: int, lanes: torch.Tensor, total: int):
     return threefry.uniform2(k)
 
 
-def _sort_state(scene: DeviceScene, o, d, alive, rad, idx):
-    """One stable sort of the secondary state by group key (live rays by
-    octant and origin cell, dead rays at the back)."""
+def _sort_state(scene: DeviceScene, o, d, alive, rad, idx, engine: str):
+    """One stable sort of the secondary state: by group key (live rays by
+    octant and origin cell, dead rays at the back) for the group engines,
+    live rays first for perray."""
+    if engine == "perray":
+        skey = torch.where(alive, 0, 1).to(torch.int32)
+        skey, order = torch.sort(skey, stable=True)
+        return (o[order], d[order], skey == 0, rad[order], idx[order])
     skey = torch.where(alive, grouped._sort_key(o, d, scene),
                        grouped.DEAD_KEY)
     skey, order = torch.sort(skey, stable=True)
     return (o[order], d[order], skey < grouped.DEAD_KEY, rad[order],
             idx[order])
+
+
+def _trace_perray(scene: DeviceScene, o, d, alive, cfg: RenderConfig,
+                  pt: PathTraceConfig):
+    """One bounce through the per-ray engine: (t, normal, hit & alive).
+    The state is sorted live-first, so only the live prefix is traced (one
+    host sync); the dead lanes' hits are masked, so this equals tracing
+    every lane."""
+    n = o.shape[0]
+    n_live = int(alive.sum())
+    bt = torch.full((n,), cfg.t_max, dtype=torch.float32, device=o.device)
+    bn3 = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    if n_live:
+        bt[:n_live], bn3[:n_live], hit[:n_live] = _trace_chunked(
+            scene, o[:n_live], d[:n_live], cfg, pt.ray_chunk)
+    return bt, bn3, hit & alive
 
 
 def _albedo_power(albedo: np.ndarray, bounce: int) -> np.ndarray:
@@ -283,7 +316,11 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     with _stage(timings, "primary"):
         o0, d0 = raygen.generate_rays(inv_view_proj, width, height,
                                       device=dev)
-        t0, hit0, bn0 = _trace_primary(scene, inv_view_proj, cfg, engine)
+        if engine == "perray":
+            t0, bn0, hit0 = _trace_chunked(scene, o0, d0, cfg, pt.ray_chunk)
+        else:
+            t0, hit0, bn0 = _trace_primary(scene, inv_view_proj, cfg,
+                                           engine)
     n = o0.shape[0]
     n_bounce = pt.bounces
     cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
@@ -336,8 +373,8 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     live_counts, overflows = [], []
     for bounce in range(1, n_bounce + 1):
         with _stage(timings, f"sort {bounce}"):
-            o, d, alive, rad, idx = _sort_state(scene, o, d, alive, rad,
-                                                idx)
+            o, d, alive, rad, idx = _sort_state(scene, o, d, alive, rad, idx,
+                                                engine)
         cap = caps[bounce - 1]
         # The cut is a host decision (the JAX package's lax.cond): one
         # sync per bounce. Past the cap every lane is dead after the sort,
@@ -347,16 +384,21 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
             o, d, alive, rad, idx = (x[:cap] for x in (o, d, alive, rad,
                                                        idx))
         with _stage(timings, f"trace {bounce}"):
-            trace = (group_trace.trace_sorted if engine == "pallas"
-                     else grouped.trace_sorted)
-            bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
-                                 d.reshape(-1, GROUP, 3),
-                                 alive.reshape(-1, GROUP), cfg_bounce)
+            if engine == "perray":
+                bt, bn3, hit = _trace_perray(scene, o, d, alive, cfg_bounce,
+                                             pt)
+                ovf = 0
+            else:
+                trace = (group_trace.trace_sorted if engine == "pallas"
+                         else grouped.trace_sorted)
+                bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
+                                     d.reshape(-1, GROUP, 3),
+                                     alive.reshape(-1, GROUP), cfg_bounce)
+                bt = bt.reshape(-1)
+                bn3 = bn3.reshape(-1, 3)
+                hit = alive & (bt < BIG) & (bt > 0.0)
         overflows.append(int(ovf))
-        bt = bt.reshape(-1)
-        bn3 = bn3.reshape(-1, 3)
         with _stage(timings, "shading"):
-            hit = alive & (bt < BIG) & (bt > 0.0)
             # Throughput of every lane read at this bounce: albedo ** b,
             # a constant (the reference's single material).
             tp_b = torch.from_numpy(_albedo_power(albedo_np, bounce)).to(dev)
@@ -408,6 +450,8 @@ def _overflow_stat_key(engine: str) -> str:
     * "pallas": ``extra_window_passes_per_bounce`` — cluster windows
       beyond the first that groups consumed. Nothing is truncated; the
       value is a work signal only.
+    * "perray": exact, uncapped — reports ``overflow_groups_per_bounce``,
+      always 0.
     """
     return ("extra_window_passes_per_bounce" if engine == "pallas"
             else "overflow_groups_per_bounce")

@@ -7,6 +7,8 @@ into a UAV texture which is copied to the swapchain. Here one kernel launch
 only per-frame host->device input is the 4x4 inverse view-projection
 matrix (application.cpp:204-205). Scenes with more clusters than one
 launch's per-tile list holds render in cluster windows, one launch each.
+The per-ray reference backend (pipeline "ray") and the XLA tile backend
+("tile") render the same frame without the kernel.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from ..ops import tile_trace, tiled
+from ..ops import raygen, shading, tile_trace, tiled, traversal
 
 
 def render_image(scene: DeviceScene, inv_view_proj,
@@ -26,13 +28,48 @@ def render_image(scene: DeviceScene, inv_view_proj,
     in [0, 1]. cfg.pipeline "auto" / "pallas": the tile-trace kernel on the
     card (fused, or windowed for scenes over kernel_clusters_per_window
     clusters), its plain version on the CPU; "tile": the kernel-free XLA
-    tile backend (ops/tiled.py)."""
+    tile backend (ops/tiled.py); "ray": the per-ray reference backend
+    (ops/traversal.py), in chunks of _pick_chunk rays."""
     if cfg.pipeline == "tile":
         return tiled.render_tiled(scene, inv_view_proj, cfg)
+    if cfg.pipeline == "ray":
+        return render_ray(scene, inv_view_proj, cfg)
     if cfg.pipeline not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"pipeline {cfg.pipeline!r} is not yet ported to rtmm_tpu_torch")
+        raise ValueError(f"unknown pipeline {cfg.pipeline!r}; one of "
+                         "'auto', 'pallas', 'tile', 'ray'")
     return tile_trace.render_frame(scene, inv_view_proj, cfg)
+
+
+def render_ray(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
+               check=None) -> torch.Tensor:
+    """The per-ray pipeline: raygen, then per chunk of rays the exact
+    traversal and shade_or_miss (the JAX package's lax.map over chunks,
+    as a host loop of launches with no sync). check(stage, tensor), when
+    given (the sanitizer render, utils/debug.py), sees the rays and each
+    chunk's t and normals."""
+    height, width = cfg.height, cfg.width
+    origins, directions = raygen.generate_rays(inv_view_proj, width, height,
+                                               device=scene.device)
+    if check is not None:
+        check("raygen: origins", origins)
+        check("raygen: directions", directions)
+    total = height * width
+    chunk = _pick_chunk(cfg, scene)
+    colors = []
+    for c0 in range(0, total, chunk):
+        o, d = origins[c0:c0 + chunk], directions[c0:c0 + chunk]
+        t, nrm, hit = traversal.trace(scene, o, d, cfg)
+        if check is not None:
+            check(f"rays {c0}-{c0 + o.shape[0] - 1}: t", t)
+            check(f"rays {c0}-{c0 + o.shape[0] - 1}: normals", nrm)
+        colors.append(shading.shade_or_miss(hit, nrm, -d, cfg))
+    return torch.cat(colors).reshape(height, width, 3)
+
+
+def _pick_chunk(cfg: RenderConfig, scene: DeviceScene) -> int:
+    """Scale the ray chunk down for deep hierarchies to bound peak memory."""
+    chunk = cfg.ray_chunk >> (2 * max(scene.max_level - 3, 0))
+    return max(min(chunk, cfg.height * cfg.width), 256)
 
 
 def _quantize(img: torch.Tensor) -> torch.Tensor:

@@ -13,18 +13,24 @@ import torch
 
 
 def image_gate(a: torch.Tensor, b: torch.Tensor, per: int = 2000,
-               big_per: int = 50000) -> dict:
+               big_per: int = 50000, mask: torch.Tensor | None = None
+               ) -> dict:
     """Compare two (H, W, 3) renders. Returns the counts, the budgets
-    max(64, W*H // per) and max(16, W*H // big_per), the max pixel
-    difference, and "ok" when both counts are within budget. The path
-    tracer's gate (bench.py:583-584) takes per = big_per = 500: a bounce
-    hit that flips at a leaf edge repaints its whole pixel."""
-    h, w = a.shape[0], a.shape[1]
+    max(64, n // per) and max(16, n // big_per) for n = W*H pixels, the
+    max pixel difference, and "ok" when both counts are within budget.
+    The path tracer's gate (bench.py:583-584) takes per = big_per = 500:
+    a bounce hit that flips at a leaf edge repaints its whole pixel.
+    mask, an (H, W) bool, restricts the gate to its pixels (n = their
+    count)."""
     d = (a.float() - b.float()).abs().amax(dim=-1)
+    n = a.shape[0] * a.shape[1]
+    if mask is not None:
+        d = d[mask]
+        n = d.numel()
     npix = int((d > 4.0 / 255.0).sum())
     nbig = int((d > 0.25).sum())
-    budget = max(64, (w * h) // per)
-    big_budget = max(16, (w * h) // big_per)
+    budget = max(64, n // per)
+    big_budget = max(16, n // big_per)
     return {"npix": npix, "nbig": nbig, "budget": budget,
-            "big_budget": big_budget, "maxdiff": float(d.max()),
+            "big_budget": big_budget, "maxdiff": float(d.max()) if n else 0.0,
             "ok": npix <= budget and nbig <= big_budget}

@@ -3,7 +3,9 @@ the tile trace in every mode (fused with precomputed and compressed
 tables, in-kernel raygen or a ray matrix; windowed; raw with both ray
 sources) and the instanced frames built on it; the grouped trace (K2) on
 random ray groups over precomputed, compressed and compressed indexed
-scenes, and path-traced frames through both secondary engines.
+scenes, and path-traced frames through both secondary engines; the
+per-ray reference backend on the card against the CPU, the perray engine
+against the pallas engine, and the debug render's NaN check.
 
 Marked `gpu`: each test asks the `cuda` fixture for the card and skips
 where there is none (the CPU runs only the plain version). On a machine
@@ -22,6 +24,7 @@ from rtmm_tpu_torch.models import procedural, scene as scene_mod
 from rtmm_tpu_torch.ops import culling, group_trace, tiled, tile_trace
 from rtmm_tpu_torch.render import instances as inst_mod
 from rtmm_tpu_torch.render import pathtrace
+from rtmm_tpu_torch.render.renderer import Renderer
 from rtmm_tpu_torch.utils import camera
 from rtmm_tpu_torch.utils.gate import image_gate
 
@@ -441,3 +444,63 @@ def test_pathtrace_frame_on_card(cuda, compressed):
         assert int((diff > 0.25).sum()) <= 16
         assert float((ost["live_rays_per_bounce"].cpu() - live).abs().max()
                      ) <= 4
+
+
+def test_perray_backend_on_card_matches_cpu(cuda):
+    """The per-ray reference backend (ops/traversal.py) on the card
+    against the same code on the CPU, at 128x96: hit masks equal, t
+    within 1e-5, and the same steps."""
+    from rtmm_tpu_torch.ops import raygen, traversal
+
+    make = lambda: procedural.make_icosphere(  # noqa: E731
+        subdivisions=1, level=3, amplitude=0.12)
+    gpu = scene_mod.build_device_scene(make(), hierarchy=True, device=cuda)
+    cpu = scene_mod.build_device_scene(make(), hierarchy=True, device="cpu")
+    cfg = RenderConfig(width=128, height=96)
+    o, d = raygen.generate_rays(_ivp(128, 96), 128, 96, device="cpu")
+    t_g, n_g, h_g, s_g = traversal.trace_with_steps(gpu, o.to(cuda),
+                                                    d.to(cuda), cfg)
+    t_c, n_c, h_c, s_c = traversal.trace_with_steps(cpu, o, d, cfg)
+    assert torch.equal(h_g.cpu(), h_c) and int(h_c.sum()) > 1000
+    assert float((t_g.cpu() - t_c).abs().max()) <= 1e-5
+    assert float((n_g.cpu() - n_c)[h_c].abs().max()) <= 1e-5
+    assert torch.equal(s_g.cpu(), s_c)
+    img_g = Renderer(gpu, dataclasses.replace(cfg, pipeline="ray")).render(
+        _ivp(128, 96))
+    img_k = Renderer(gpu, cfg).render(_ivp(128, 96))
+    assert int(((img_g - img_k).abs().amax(-1) > 1e-3).sum()) == 0
+
+
+def test_perray_engine_on_card_matches_pallas(cuda):
+    """The path tracer's perray engine against the pallas engine (K1d
+    primaries, K2 bounces) at 64x48: the engine budgets of the JAX
+    package's comparison (at most 5 pixels over 1e-4, live counts within
+    4)."""
+    scene = scene_mod.build_device_scene(
+        procedural.make_icosphere(subdivisions=0, level=3, amplitude=0.1),
+        hierarchy=True, device=cuda)
+    cfg = RenderConfig(width=64, height=48, sub_frusta=8)
+    pt = pathtrace.PathTraceConfig(bounces=2, samples_per_pixel=2,
+                                   engine="perray")
+    a, sa = pathtrace.PathTracer(scene, cfg, pt).render(_ivp(64, 48))
+    b, sb = pathtrace.PathTracer(scene, cfg, dataclasses.replace(
+        pt, engine="pallas")).render(_ivp(64, 48))
+    npix = int(((a - b).abs().amax(-1) > 1e-4).sum())
+    assert npix <= 5, npix
+    assert float((sa["live_rays_per_bounce"]
+                  - sb["live_rays_per_bounce"]).abs().max()) <= 4
+    assert not bool(sa["overflow_groups_per_bounce"].any())
+
+
+def test_debug_render_on_card_raises_on_nan(cuda):
+    from rtmm_tpu_torch.utils.debug import debug_render
+
+    scene = _scene(1, 3, cuda)
+    cfg = RenderConfig(width=128, height=64)
+    img = debug_render(scene, _ivp(128, 64), cfg)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    lv = scene.leaf_verts.clone()
+    lv.reshape(-1)[int(torch.nonzero(lv.reshape(-1))[7])] = float("nan")
+    with pytest.raises(FloatingPointError, match="leaf_verts"):
+        debug_render(dataclasses.replace(scene, leaf_verts=lv),
+                     _ivp(128, 64), cfg)

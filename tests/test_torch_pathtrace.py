@@ -211,10 +211,19 @@ def test_compressed_matches_standard(engine):
 
 
 def test_engines_and_defaults(scenes):
-    """perray is not ported and says so; auto is grouped on a CPU scene;
-    bounce_t_max comes from the cluster bounds as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pathtrace.PathTracer(scenes[1], CFG,
+    """perray runs and compressed + perray raises, as in the JAX package;
+    auto is grouped on a CPU scene; bounce_t_max comes from the cluster
+    bounds as in the JAX package."""
+    hier = scene_mod.build_device_scene(procedural.make_plane(**PLANE),
+                                        hierarchy=True, device="cpu")
+    img, st = pathtrace.PathTracer(hier, CFG, pathtrace.PathTraceConfig(
+        bounces=1, samples_per_pixel=1, engine="perray")).render(_ivp())
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    assert float(st["live_rays_per_bounce"][0]) > 0
+    comp = scene_mod.build_device_scene(procedural.make_plane(**PLANE),
+                                        compressed=True, device="cpu")
+    with pytest.raises(ValueError, match="compressed scenes"):
+        pathtrace.PathTracer(comp, CFG,
                              pathtrace.PathTraceConfig(engine="perray"))
     with pytest.raises(ValueError):
         pathtrace.PathTracer(scenes[1], CFG,
