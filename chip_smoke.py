@@ -88,7 +88,22 @@ Phases (any failure raises and exits non-zero):
      in leaf_verts: FloatingPointError), the scene cache (the second build
      a load, its tables and its K1a frame bit-equal to the first and to
      phase 3's), and the viewer's headless orbit writing 2 frames at
-     1080p (K1a, counted).
+     1080p (K1a, counted);
+ 20. multi-device rendering (parallel/sharding.py), ranks spawned by
+     parallel/launch.py after every kernel is built: config 3 at 1080p in
+     windows of 4 clusters through render_tiled_sharded's trace kernel
+     (K1b) on (a) a 1x1 mesh over NCCL and (b) a 2x1 mesh over gloo, each
+     rank's t, summed normals and visits bit-equal to the single-card
+     windowed trace; (c) 1x2 and 2x2 meshes (scene shards, closest-hit
+     combine), the rays whose t or normal differs printed and the frame
+     within the two-tier gate, each rank's scene MiB; (d) config 9
+     compressed on 1x2 (K1b + K1c); (e) the gspmd pipeline on 2x1 against
+     the single card's XLA tile frame; (f) the per-ray pipeline on 1x2 at
+     480x270 with 23 candidates against the single card's per-ray frame;
+     (g) dryrun_multichip(4). Each layout's ms per frame (CUDA events per
+     rank, host clock on rank 0) and K1b launches per rank, counted from
+     0 in each rank; ranks of gloo worlds share the one card, so their
+     times measure overhead, not scaling.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
@@ -385,7 +400,8 @@ def _time_windows(launches) -> float:
 
 
 def phase_config9(card, ivp, cfg, counted, geo):
-    """Config 9 at full size: compressed fused (K1c)."""
+    """Config 9 at full size: compressed fused (K1c). Returns the kernel
+    table's entry and the scene."""
     from rtmm_tpu_torch.models import procedural, scene as scene_mod
     from rtmm_tpu_torch.ops import tile_trace
     from rtmm_tpu_torch.utils.gate import image_gate
@@ -477,7 +493,7 @@ def phase_config9(card, ivp, cfg, counted, geo):
     _k1_vs_before(card, "config 9", kernel_ms, bound)
     return _entry("tile_trace_fused_compressed",
                   "fused, compressed grid_su", launches, err, kernel_ms,
-                  plain_ms, bound)
+                  plain_ms, bound), scene
 
 
 def phase_windowed3(card, scene, ivp, cfg, counted, img_fused,
@@ -1694,6 +1710,248 @@ def phase_debug_cache(card, scene, img_main, ivp, cfg):
         raise RuntimeError("viewer: orbit frames malformed")
 
 
+
+# Phase 20: the multi-device path (parallel/sharding.py) on the one card.
+# Ranks are spawned processes: a world of one over NCCL, worlds of two and
+# four over gloo with the ranks sharing the card (NCCL refuses two ranks
+# on one device), so their times measure overhead, not scaling. Config 3
+# walks in windows of CLUSTERS_PER_WINDOW_3 clusters, as phase 7(a), so
+# that each scene shard's walk spans several windows; config 9 takes one
+# window per shard. MD_REPS frames are timed after each counted one.
+MD_REPS = 5
+MD_TIMEOUT_S = 600
+# The per-ray layout: config 3 at 480x270 with as many candidates per ray
+# as the most triangle AABBs a ray of the 1080p frame enters (23, phase
+# 16): no candidate cut on the single card or on either shard.
+RAY_W, RAY_H, RAY_CANDIDATES = 480, 270, 23
+
+
+def _md_job(shape, scene, cfg, ivp, pipeline="tile", backend="pallas",
+            reps=MD_REPS, device="cuda"):
+    return dict(shape=shape, device=device, scene=scene, cfg=cfg, ivp=ivp,
+                pipeline=pipeline, backend=backend, reps=reps)
+
+
+def _md_spawn(world, scenes, jobs):
+    """Run jobs on a world of ranks; returns, per job, the ranks'
+    results."""
+    from rtmm_tpu_torch.parallel import entry, launch
+    t0 = time.perf_counter()
+    out = launch.spawn(entry.render_jobs, world, jobs[0]["device"],
+                       args=(scenes, jobs), timeout_s=MD_TIMEOUT_S)
+    _log(f"[multi-device] {world} rank(s) over {out[0][0]['backend']}: "
+         f"{len(jobs)} layout(s) in {time.perf_counter() - t0:.1f} s, rank "
+         "start-up included")
+    return [[r[i] for r in out] for i in range(len(jobs))]
+
+
+def _md_single(scene, cfg, ivp):
+    """The single-card windowed trace at the shards' kc rule: ((t, summed
+    normals (tiles, TILE, 3), visits) as NumPy, its frame, and the
+    frame's ms (CUDA events))."""
+    from rtmm_tpu_torch.ops import tile_trace
+    ivp_t = torch.as_tensor(ivp, dtype=torch.float32, device=scene.device)
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, ivp_t, cfg)
+    t0, n0, vis0, _, _ = tile_trace.trace_windows(scene, fi, frus, raymat,
+                                                  cfg, kc)
+    img0 = tile_trace.render_windowed(scene, ivp_t, cfg, kc)[0]
+    ms = _events_ms(lambda: tile_trace.render_windowed(scene, ivp_t, cfg,
+                                                       kc), reps=1, rounds=3)
+    return ((t0.cpu().numpy(), n0.transpose(1, 2).cpu().numpy(),
+             vis0.cpu().numpy()), img0, ms)
+
+
+def _md_layout(card, name, results, backend, chosen, single_ms,
+               kernel=None, every_rank=True):
+    """Check every rank ran over `backend`, chose `chosen` and returned
+    the same frame, and that `kernel` launched once per window of each rank's walk (on every
+    rank, unless every_rank is False: a rank whose tiles hit no cluster
+    walks no window); log the layout's times, launches and per-rank scene
+    MiB. Returns its record for the kernel table."""
+    for r in results:
+        if (r["backend"], r["chosen"]) != (backend, chosen):
+            raise RuntimeError(f"{name}: rank {r['rank']} ran over "
+                               f"{r['backend']} and chose {r['chosen']}, "
+                               f"not {backend} and {chosen}")
+        if not np.array_equal(r["image"], results[0]["image"]):
+            raise RuntimeError(f"{name}: the ranks returned different "
+                               "frames")
+    launches = [r["launches"].get(kernel, 0) for r in results]
+    windows = [r["trace"]["windows"] for r in results
+               if kernel is not None]
+    if kernel is not None and (
+            (every_rank and min(launches) == 0) or not max(launches)
+            or (windows and windows != launches)):
+        raise RuntimeError(f"{name}: {kernel} launches per rank "
+                           f"{launches}, windows {windows}")
+    if kernel is None and any(r["launches"] for r in results):
+        raise RuntimeError(f"{name}: trace kernels launched: "
+                           f"{[r['launches'] for r in results]}")
+    ms = [r["ms_events"] for r in results]
+    shares = len(results) > torch.cuda.device_count()
+    shared = " (ranks share one card)" if shares else ""
+    _log(f"[{name} time] {card}: {backend}{shared}: ms per frame, CUDA "
+         f"events per rank {[round(m, 4) for m in ms]}, host clock on rank "
+         f"0 {results[0]['ms_wall']:.4f}; single card {single_ms:.4f}; "
+         + (f"{kernel} launches per rank {launches}; " if kernel else "")
+         + "scene MiB per rank "
+         f"{[round(r['shard_bytes'] / 2**20, 2) for r in results]}")
+    return {"backend": backend, "ranks_share_one_card": shares,
+            "launches": launches, "ms": ms, "ms_wall": results[0]["ms_wall"]}
+
+
+def _md_rows_equal(name, results, ref):
+    """Rays-only layouts: each rank's rows bit-equal to the single-card
+    windowed trace (t, summed normals, visits); the visits sum to its."""
+    t0, n0, vis0 = ref
+    gathered = np.zeros_like(vis0)      # overlap tiles counted once
+    for r in results:
+        tr = r["trace"]
+        rows = slice(tr["tile0"], tr["tile0"] + tr["t"].shape[0])
+        for key, want in (("t", t0), ("n", n0), ("visits", vis0)):
+            if not np.array_equal(tr[key], want[rows]):
+                raise RuntimeError(f"{name}: rank {r['rank']}'s {key} "
+                                   "differs from the single-card trace")
+        gathered[rows] = tr["visits"]
+    total = int(gathered.sum())
+    _log(f"[{name} check] t, normals and visits of every rank's tiles "
+         f"bit-equal to the single-card windowed trace; visits {total} = "
+         f"{int(vis0.sum())}")
+    if total != int(vis0.sum()):
+        raise RuntimeError(f"{name}: visits {total} != {int(vis0.sum())}")
+
+
+def _md_combined(name, results, ref, img0):
+    """Scene layouts: rays whose combined t or normal differs from the
+    single card's (printed), the frame within the two-tier gate."""
+    from rtmm_tpu_torch.utils.gate import image_gate
+    t0, n0, vis0 = ref
+    t_diff = n_diff = 0
+    for r in results:
+        if r["scene_index"]:
+            continue
+        tr = r["trace"]
+        rows = slice(tr["tile0"], tr["tile0"] + tr["t"].shape[0])
+        t_diff += int((tr["t"] != t0[rows]).sum())
+        n_diff += int((tr["n"] != n0[rows]).any(-1).sum())
+    shard_vis = [int(r["trace"]["visits"].sum()) for r in results]
+    gate = image_gate(torch.from_numpy(results[0]["image"]), img0.cpu())
+    _log(f"[{name} check] rays whose combined t differs from the single "
+         f"card's: {t_diff}; whose summed normal differs: {n_diff}; visits "
+         f"per rank {shard_vis}, single card {int(vis0.sum())}; frame "
+         f"against the single card's: {gate}")
+    if not gate["ok"]:
+        raise RuntimeError(f"{name}: frame fails the gate: {gate}")
+
+
+def phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels):
+    """Phase 20: config 3 (and config 9 compressed) through the sharded
+    renderer on 1x1 (NCCL), 2x1, 1x2, 2x2 (gloo), the gspmd and per-ray
+    pipelines, and dryrun_multichip(4)."""
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.ops import tiled
+    from rtmm_tpu_torch.parallel import entry
+    from rtmm_tpu_torch.render.renderer import render_ray
+    from rtmm_tpu_torch.utils.gate import image_gate
+
+    t_phase = time.perf_counter()
+    dev = scene.device
+    job = functools.partial(_md_job, device=dev.type)
+    cfg3 = dataclasses.replace(
+        cfg, kernel_clusters_per_window=CLUSTERS_PER_WINDOW_3)
+    ivp_t = torch.as_tensor(ivp, dtype=torch.float32, device=dev)
+
+    ref3, img3, ms3 = _md_single(scene, cfg3, ivp)
+    ref9, img9, ms9 = _md_single(scene9, cfg, ivp)
+    mib3 = scene.device_bytes() / 2**20
+    mib9 = scene9.device_bytes() / 2**20
+    cfg_ray = dataclasses.replace(cfg, width=RAY_W, height=RAY_H,
+                                  pipeline="ray",
+                                  max_candidates=RAY_CANDIDATES)
+    ivp_ray = _camera(25.0, cfg_ray)
+    scene_h = scene_mod.scene_from_arrays(arrays_h, device=dev)
+    img_ray = render_ray(scene_h, ivp_ray, cfg_ray)
+    ms_ray = _events_ms(lambda: render_ray(scene_h, ivp_ray, cfg_ray),
+                        reps=1, rounds=1)
+    mib_h = scene_h.device_bytes() / 2**20
+    del scene_h
+    img_tiled = tiled.render_tiled(scene, ivp_t, cfg)
+    ms_tiled = _events_ms(lambda: tiled.render_tiled(scene, ivp_t, cfg),
+                          reps=1, rounds=1)
+    _log(f"[multi-device single card] {card}: config 3 windowed (kc "
+         f"{CLUSTERS_PER_WINDOW_3}) {ms3:.4f} ms per frame, {mib3:.1f} MiB; "
+         f"config 9 windowed {ms9:.4f} ms, {mib9:.1f} MiB; XLA tile "
+         f"backend {ms_tiled:.4f} ms; per-ray {RAY_W}x{RAY_H} with "
+         f"{RAY_CANDIDATES} candidates {ms_ray:.4f} ms, {mib_h:.1f} MiB")
+    scenes = {"c3": scene_mod.scene_arrays(scene),
+              "c9": scene_mod.scene_arrays(scene9), "c3h": arrays_h}
+    k1b, k1bc = "tile_trace_windowed", "tile_trace_windowed_compressed"
+    sharded, sharded_c = {}, {}
+
+    # (a) 1x1 over NCCL.
+    (one,) = _md_spawn(1, scenes, [
+        job((1, 1), "c3", cfg3, ivp)])
+    sharded["1x1"] = _md_layout(card, "multi-device 1x1", one, "nccl",
+                                ("tile-sharded", "pallas"), ms3, k1b)
+    _md_rows_equal("multi-device 1x1", one, ref3)
+
+    # (b) 2x1, (c) 1x2, (d) config 9 compressed on 1x2, (e) gspmd on 2x1,
+    # (f) per-ray on 1x2: one world of two ranks sharing the card.
+    r21, r12, r12c, rg, rray = _md_spawn(2, scenes, [
+        job((2, 1), "c3", cfg3, ivp),
+        job((1, 2), "c3", cfg3, ivp),
+        job((1, 2), "c9", cfg, ivp),
+        job((2, 1), "c3", cfg, ivp, backend="auto", reps=1),
+        job((1, 2), "c3h", cfg_ray, ivp_ray, pipeline="ray", reps=1)])
+    sharded["2x1"] = _md_layout(card, "multi-device 2x1", r21, "gloo",
+                                ("tile-sharded", "pallas"), ms3, k1b)
+    _md_rows_equal("multi-device 2x1", r21, ref3)
+    sharded["1x2"] = _md_layout(card, "multi-device 1x2", r12, "gloo",
+                                ("tile-sharded", "pallas"), ms3, k1b)
+    _md_combined("multi-device 1x2", r12, ref3, img3)
+    sharded_c["config 9 1x2"] = _md_layout(
+        card, "multi-device config 9 1x2", r12c, "gloo",
+        ("tile-sharded", "pallas"), ms9, k1bc)
+    _md_combined("multi-device config 9 1x2", r12c, ref9, img9)
+    _md_layout(card, "multi-device gspmd 2x1", rg, "gloo",
+               ("tile-gspmd", None), ms_tiled)
+    gate = image_gate(torch.from_numpy(rg[0]["image"]), img_tiled.cpu())
+    _log(f"[multi-device gspmd 2x1 check] against the single card's XLA "
+         f"tile frame: {gate}")
+    if not gate["ok"]:
+        raise RuntimeError(f"gspmd 2x1 fails the gate: {gate}")
+    _md_layout(card, "multi-device per-ray 1x2", rray, "gloo",
+               ("ray", None), ms_ray)
+    gate = image_gate(torch.from_numpy(rray[0]["image"]), img_ray.cpu())
+    _log(f"[multi-device per-ray 1x2 check] {RAY_W}x{RAY_H}, "
+         f"{RAY_CANDIDATES} candidates, against the single card's per-ray "
+         f"frame: {gate}")
+    if not gate["ok"]:
+        raise RuntimeError(f"per-ray 1x2 fails the gate: {gate}")
+
+    # (c) 2x2: four ranks sharing the card.
+    (r22,) = _md_spawn(4, scenes, [job((2, 2), "c3", cfg3, ivp)])
+    sharded["2x2"] = _md_layout(card, "multi-device 2x2", r22, "gloo",
+                                ("tile-sharded", "pallas"), ms3, k1b)
+    _md_combined("multi-device 2x2", r22, ref3, img3)
+
+    # (g) the dry run: parallel/entry.py::dryrun_multichip.
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(4, device=dev.type,
+                                 timeout_s=MD_TIMEOUT_S)
+    dry_launches = [r["launches"].get(k1b, 0) for r in dry]
+    _log(f"[multi-device dryrun_multichip(4)] {time.perf_counter() - t0:.1f}"
+         f" s; meshes {[r['mesh'] for r in dry]}; {k1b} launches per rank "
+         f"{dry_launches}")
+    if min(dry_launches) == 0:
+        raise RuntimeError("dryrun_multichip(4): a rank launched no K1b")
+
+    next(k for k in kernels if k["name"] == k1b)["sharded"] = sharded
+    next(k for k in kernels if k["name"] == k1bc)["sharded"] = sharded_c
+    _log(f"[phase 20] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1881,7 +2139,8 @@ def main() -> int:
                        else "bytes"))]
 
     # -- 6. config 9: compressed, fused (K1c) -------------------------------
-    kernels.append(phase_config9(card, ivp, cfg, counted, geo))
+    entry9, scene9 = phase_config9(card, ivp, cfg, counted, geo)
+    kernels.append(entry9)
     # -- 7. windowed walks (K1b) ---------------------------------------------
     kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
                                    stats["kernel_unit_visits"]))
@@ -1913,10 +2172,13 @@ def main() -> int:
     t0 = time.perf_counter()
     scene_h = phase_perray(card, mesh, img_main, ivp, cfg)
     phase_stats(card, scene_h, ivp, ivps, cfg)
+    arrays_h = scene_mod.scene_arrays(scene_h)
     del scene_h
     phase_perray_engine(card, mesh5)
     phase_debug_cache(card, scene, img_main, ivp, cfg)
     _log(f"[phases 16-19] {time.perf_counter() - t0:.1f} s")
+    # -- 20. multi-device rendering -----------------------------------------
+    phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels)
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

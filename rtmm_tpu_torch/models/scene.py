@@ -174,6 +174,18 @@ def scene_from_arrays(arrays: Mapping[str, np.ndarray], *,
         **tensors)
 
 
+def scene_arrays(scene: DeviceScene) -> dict[str, np.ndarray]:
+    """The scene as host arrays, scene_from_arrays' input: every tensor
+    that is not None, and the meta fields."""
+    arrays = {f.name: getattr(scene, f.name).cpu().numpy()
+              for f in dataclasses.fields(scene)
+              if f.name not in META_FIELDS
+              and getattr(scene, f.name) is not None}
+    arrays.update({name: np.asarray(getattr(scene, name))
+                   for name in META_FIELDS})
+    return arrays
+
+
 def build_device_scene(mesh: mesh_mod.MicroMesh, tessellated: bool = False,
                        pad_triangles_to: int = 8,
                        hierarchy: bool = False,

@@ -14,20 +14,25 @@ from . import _f32
 
 def generate_rays(inv_view_proj, width: int, height: int,
                   render_width: int | None = None,
-                  render_height: int | None = None, device="cuda"):
+                  render_height: int | None = None, device="cuda",
+                  rows: tuple[int, int] | None = None):
     """Returns (origins (H*W, 3), directions (H*W, 3)) in row-major pixel
     order, on `device`.
 
     render_width/height generate a larger (padded) pixel grid while keeping
     the NDC mapping of the logical width/height — padding pixels fall
-    outside NDC [-1, 1] and are cropped by the caller.
+    outside NDC [-1, 1] and are cropped by the caller. rows = (first, count)
+    generates only those pixel rows of the grid (the same values as the
+    whole grid's rows).
     """
     rw = render_width or width
     rh = render_height or height
+    row0, n_rows = (0, rh) if rows is None else rows
     m = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=device)
-    px = torch.arange(rw, dtype=torch.float32, device=device).expand(rh, rw)
-    py = torch.arange(rh, dtype=torch.float32,
-                      device=device)[:, None].expand(rh, rw)
+    px = torch.arange(rw, dtype=torch.float32,
+                      device=device).expand(n_rows, rw)
+    py = torch.arange(row0, row0 + n_rows, dtype=torch.float32,
+                      device=device)[:, None].expand(n_rows, rw)
     u = _f32.div(px + 0.5, float(width))
     v = _f32.div(py + 0.5, float(height))
     ndc_x = u * 2.0 - 1.0

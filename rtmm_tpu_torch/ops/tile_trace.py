@@ -826,15 +826,14 @@ def _to_image(colors, cfg):
                                                         :cfg.width]
 
 
-def render_windowed(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
-                    kc: int):
-    """One frame in cluster windows of kc clusters (render_pallas's
-    windowed branch): the ray matrix, carries t = BIG and normals 0, one
-    windowed launch per window (tiled.trace_windowed_clusters), then the
-    normalised normal shaded against -d in the row form of the fused
-    kernel's epilogue. Returns (image (H, W, 3),
-    visits (tiles,), eligible (tiles,), number of windows)."""
-    fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
+def trace_windows(scene: DeviceScene, fi: tiled.FrameInputs, frus, raymat,
+                  cfg: RenderConfig, kc: int):
+    """The cluster-window loop over fi's tiles, unshaded: carries t = BIG
+    and normals 0, one windowed launch per window
+    (tiled.trace_windowed_clusters). frus and raymat (tiles, 8, TILE) as
+    ray_frame_inputs gives them. Returns (best_t (tiles, TILE), summed
+    winner normals (tiles, 3, TILE), visits (tiles,), eligible (tiles,),
+    number of windows)."""
     meta, tables, opts = scene_tables(scene)
     n_tiles = frus.shape[0]
     dev = frus.device
@@ -853,6 +852,19 @@ def render_windowed(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
               torch.zeros(n_tiles, dtype=torch.int32, device=dev))
     best_t, (n, visits, eligible), windows = tiled.trace_windowed_clusters(
         scene, fi, trace_window, init_t, init_n, kc)
+    return best_t, n, visits, eligible, windows
+
+
+def render_windowed(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
+                    kc: int):
+    """One frame in cluster windows of kc clusters (render_pallas's
+    windowed branch): the ray matrix, the window loop (trace_windows),
+    then the normalised normal shaded against -d in the row form of the
+    fused kernel's epilogue. Returns (image (H, W, 3),
+    visits (tiles,), eligible (tiles,), number of windows)."""
+    fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
+    best_t, n, visits, eligible, windows = trace_windows(scene, fi, frus,
+                                                         raymat, cfg, kc)
     # The fused kernel's epilogue (shade_rows, the row form of
     # shade_or_miss): normalise the summed winner normal, shade against -d.
     nn = torch.clamp_min(torch.sqrt(n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]

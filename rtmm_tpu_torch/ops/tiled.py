@@ -113,7 +113,8 @@ def recentered_raymat(raymat: torch.Tensor,
 def build_frame_inputs(scene: DeviceScene, inv_view_proj,
                        cfg: RenderConfig,
                        need_rays: bool = True,
-                       need_q_frame: bool = False) -> FrameInputs:
+                       need_q_frame: bool = False,
+                       tiles: tuple[int, int] | None = None) -> FrameInputs:
     """Raygen + the coarse (cluster-level) cull, on the scene's device.
 
     need_rays=False skips raygen and the ray-matrix build (raymat/dirs
@@ -122,30 +123,43 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
     builds the XLA tile backend's per-frame table q_frame (a copy of
     unit_qn; compressed scenes have none). The kernel paths leave it off,
     which is why the default differs from the JAX package's.
+
+    tiles = (first, count) of the flat tile index: the prologue of those
+    tiles only (a rank's share of a multi-device frame). Their frustums
+    are cut before the cull, and rays are made only for the tile rows
+    they span; every value equals the whole frame's at those tiles.
     """
     dev = scene.device
     width, height = cfg.width, cfg.height
     pw, ph = padded_size(width, height)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
-    n_tiles = tx * ty
+    tile0, n_tiles = (0, tx * ty) if tiles is None else tiles
 
     apex, normals = culling.tile_frustums(inv_view_proj, width, height,
                                           pw, ph, device=dev)
     sub_normals = culling.tile_sub_frustums(inv_view_proj, width, height,
                                             pw, ph, n_sub=cfg.sub_frusta,
                                             n_rows=cfg.sub_rows, device=dev)
+    normals = normals[tile0:tile0 + n_tiles]
+    sub_normals = sub_normals[tile0:tile0 + n_tiles]
     cluster_hit = culling.cull_units(apex, normals, scene.cluster_aabb_min,
                                      scene.cluster_aabb_max,
                                      scene.cluster_valid)
 
     raymat = dirs = None
     if need_rays:
-        origins, dirs = raygen.generate_rays(inv_view_proj, width, height,
-                                             pw, ph, device=dev)
+        # The tile rows that hold the tiles, then the tiles among them.
+        ty0 = tile0 // tx
+        n_ty = -(-(tile0 + n_tiles) // tx) - ty0
+        origins, dirs = raygen.generate_rays(
+            inv_view_proj, width, height, pw, ph, device=dev,
+            rows=(ty0 * culling.TILE_H, n_ty * culling.TILE_H))
+        first = tile0 - ty0 * tx
 
         def to_tiles(x):
-            return (x.reshape(ty, culling.TILE_H, tx, culling.TILE_W, 3)
-                    .permute(0, 2, 1, 3, 4).reshape(n_tiles, TILE, 3))
+            return (x.reshape(n_ty, culling.TILE_H, tx, culling.TILE_W, 3)
+                    .permute(0, 2, 1, 3, 4).reshape(n_ty * tx, TILE, 3)
+                    [first:first + n_tiles])
 
         dirs = to_tiles(dirs)
         origins = to_tiles(origins)

@@ -11,13 +11,12 @@ loads into the other (models/scene.py::scene_from_arrays).
 """
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import os
 
 import numpy as np
 
-from ..models.scene import META_FIELDS, DeviceScene, scene_from_arrays
+from ..models.scene import DeviceScene, scene_arrays, scene_from_arrays
 
 # Part of the cache key: bump whenever the DeviceScene schema changes so
 # stale files are orphaned instead of loaded into the new dataclass.
@@ -50,13 +49,8 @@ def asset_cache_key(path: str, tessellated: bool,
 def save_scene(scene: DeviceScene, cache_path: str) -> None:
     """Write the scene's tensors (every field that is not None) and its
     meta fields to an .npz."""
-    arrays = {f.name: getattr(scene, f.name).cpu().numpy()
-              for f in dataclasses.fields(scene)
-              if f.name not in META_FIELDS
-              and getattr(scene, f.name) is not None}
-    meta = {name: np.asarray(getattr(scene, name)) for name in META_FIELDS}
     os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
-    np.savez_compressed(cache_path, **meta, **arrays)
+    np.savez_compressed(cache_path, **scene_arrays(scene))
 
 
 def load_scene(cache_path: str, device="cuda") -> DeviceScene:

@@ -504,3 +504,46 @@ def test_debug_render_on_card_raises_on_nan(cuda):
     with pytest.raises(FloatingPointError, match="leaf_verts"):
         debug_render(dataclasses.replace(scene, leaf_verts=lv),
                      _ivp(128, 64), cfg)
+
+
+@pytest.mark.parametrize("shape,backend", [((1, 1), "nccl"),
+                                           ((2, 1), "gloo")],
+                         ids=["1x1_nccl", "2x1_gloo"])
+def test_sharded_trace_matches_single_card(cuda, shape, backend):
+    """render_tiled_sharded(backend="pallas") over NCCL (one rank) and
+    over gloo (two ranks sharing the card): each rank's tile rows are bit
+    for bit the single-card windowed trace's (t, summed normals, visits),
+    and every rank launched the windowed kernel (K1b) once per window."""
+    from rtmm_tpu_torch.ops import _build
+    from rtmm_tpu_torch.parallel import entry, launch
+
+    _build.build_all()      # in the parent, before the ranks start
+    w, h = 256, 64
+    cfg = RenderConfig(width=w, height=h, kernel_clusters_per_window=1)
+    scene = _scene(1, 3, "cpu")                       # 2 clusters
+    job = dict(shape=shape, device="cuda", scene="s", cfg=cfg,
+               ivp=_ivp(w, h), pipeline="tile", backend="pallas")
+    results = [r[0] for r in launch.spawn(
+        entry.render_jobs, shape[0] * shape[1], "cuda",
+        args=({"s": scene_mod.scene_arrays(scene)}, [job]), timeout_s=300)]
+    scene_c = _scene(1, 3, cuda)
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene_c, _ivp(w, h), cfg)
+    t0, n0, vis0, _, windows = tile_trace.trace_windows(
+        scene_c, fi, frus, raymat, cfg, 1)
+    t0, n0, vis0 = (t0.cpu().numpy(), n0.transpose(1, 2).cpu().numpy(),
+                    vis0.cpu().numpy())
+    for r in results:
+        tr = r["trace"]
+        rows = slice(tr["tile0"], tr["tile0"] + tr["t"].shape[0])
+        # The backend the launcher chose: NCCL for one rank, gloo for
+        # ranks that share a card (the ids name the one-card case).
+        assert r["backend"] == launch.choose_backend(len(results), "cuda")
+        assert r["chosen"] == ("tile-sharded", "pallas")
+        assert r["launches"] == {"tile_trace_windowed": tr["windows"]}
+        assert tr["windows"] >= 2
+        np.testing.assert_array_equal(tr["t"], t0[rows])
+        np.testing.assert_array_equal(tr["n"], n0[rows])
+        np.testing.assert_array_equal(tr["visits"], vis0[rows])
+    assert sum(int(r["trace"]["visits"].sum()) for r in results) == int(
+        vis0.sum()) > 0
+    assert windows >= 2

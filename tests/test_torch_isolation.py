@@ -26,11 +26,18 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+# Modules the scan must reach by name: the main path's kernel wrapper,
+# and the multi-device path, whose ranks run outside the test process.
+NAMED = ("rtmm_tpu_torch/ops/tile_trace.py", "chip_smoke.py",
+         "rtmm_tpu_torch/parallel/sharding.py",
+         "rtmm_tpu_torch/parallel/launch.py",
+         "rtmm_tpu_torch/parallel/entry.py")
+
+
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert "rtmm_tpu_torch/ops/tile_trace.py" in names
-    assert "chip_smoke.py" in names
-    assert len(names) >= 25
+    assert set(NAMED) <= names
+    assert len(names) >= 28
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -42,7 +49,8 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_entry_points_leave_jax_unloaded():
-    code = ("import sys, rtmm_tpu_torch.app, rtmm_tpu_torch.render.renderer; "
+    code = ("import sys, rtmm_tpu_torch.app, rtmm_tpu_torch.render.renderer, "
+            "rtmm_tpu_torch.parallel.entry; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or m == 'rtmm_tpu' "
             "or m.startswith('rtmm_tpu.')))")
