@@ -32,6 +32,19 @@ Phases (any failure raises and exits non-zero):
      (level-3 plane, compressed) cut from a 707x707 to a 160x160 grid
      (800 clusters) and from 256 to 16 clusters per window, both counted,
      kernel vs plain on the first window's launch, timing and bound;
+     (c) config 7 at its full size: a 707x707 level-3 plane (999,698 base
+     triangles, 64M micro-triangles, 15,621 clusters), compressed, at 1080p
+     in windows of the default 256 clusters (K1b + K1c), the mesh and
+     build timed; counted, visits within 5% of the pin, the first window
+     against its plain version on its most visited tile and evenly spaced
+     others within a visit budget, bench.py's verify (the
+     frame against the XLA tile backend at 240x136 by 6x6-cell means),
+     the frame's time and where it goes; the scene is freed after it;
+     (d) bench configs 1, 2 and 11 (a tessellated and a micro-mesh 20-face
+     level-2 icosphere at 256x256, a level-5 320-face icosphere at 1080p)
+     on the fused path (K1a), counted: visits within 5% of their pins,
+     the frame against the XLA tile backend at full size by the pixel
+     gate, config 11's launch against its plain version on checked rows;
   8. bench config 4 (6 baked instances of an 80-triangle level-3
      icosphere, K1a): baked on the card, visits within 5% of the pin, the
      frame within the gate of the same ring through render_instanced;
@@ -165,6 +178,27 @@ DERIVE_OPS_PER_LEAF = 6 + 3 + 27 + 5 + 6 + 9 + 7 + 3
 # count, 256 -> 16, so that tiles still need several windows (at the
 # verify camera a tile of the cut scene sees at most ~50 clusters).
 EXPECTED_VISITS_9 = 21967
+# Config 7 at its full size (bench.py:106-111, _million_tri_scene
+# :202-230): a 707x707 level-3 plane, compressed, at 1080p in windows of
+# the default 256 clusters, and its visit pin (bench.py:267).
+GRID_7_FULL = 707
+EXPECTED_VISITS_7 = 1041098
+# Unit visits config 7's plain check walks: its first window's most
+# visited tiles hold up to 256 clusters x 64 units = 16,384 visits each,
+# and the plain walk takes ~1.2 ms per visit on the card, so the check
+# takes the most visited tile and evenly spaced others within this budget
+# (~50 s) instead of the 16 most visited.
+PLAIN_VISITS_7 = 40000
+# Bench configs 1, 2 and 11 (bench.py:75-86, :123-131): (icosphere
+# arguments, tessellated, width, height, visit pin bench.py:262-263,269).
+SMALL_CONFIGS = {
+    "config 1": (dict(subdivisions=0, level=2, amplitude=0.1), True,
+                 256, 256, 95),
+    "config 2": (dict(subdivisions=0, level=2, amplitude=0.1), False,
+                 256, 256, 95),
+    "config 11": (dict(subdivisions=2, level=5, amplitude=0.1), False,
+                  1920, 1080, 9434),
+}
 GRID_7 = 160
 CLUSTERS_PER_WINDOW_7 = 16
 CLUSTERS_PER_WINDOW_3 = 4
@@ -309,6 +343,21 @@ def _check_rows(ccount, vis) -> list[int]:
     step = max(1, len(rest) // max(1, CHECK_TILES - TOP_TILES))
     return sorted(set(top.tolist())
                   | set(rest[::step][:CHECK_TILES - TOP_TILES].tolist()))
+
+
+def _budget_rows(ccount, vis, budget: int) -> list[int]:
+    """Rows of a kernel-vs-plain comparison under a visit budget: the most
+    visited non-empty row, then evenly spaced non-empty rows (up to
+    CHECK_TILES in all) whose visits fit the budget."""
+    nonempty = (ccount > 0).nonzero()[:, 0]
+    top = int(nonempty[torch.argmax(vis[nonempty])])
+    rows, total = [top], int(vis[top])
+    for t in nonempty[::max(1, len(nonempty) // CHECK_TILES)].tolist():
+        if len(rows) < CHECK_TILES and t != top and (
+                total + int(vis[t]) <= budget):
+            rows.append(t)
+            total += int(vis[t])
+    return sorted(rows)
 
 
 def _expect_launches(what: str, expected: dict) -> dict:
@@ -667,6 +716,238 @@ def phase_windowed7(card, ivp, cfg, counted):
                    plain_ms, bound)
     entry["plain_tiles"] = len(rows)
     return entry
+
+
+def _gated_verify(scene, cfg, n_units):
+    """bench.py's verification of a frame (_verify_image): the kernel
+    frame against the XLA tile backend at bench's verify size, with the
+    pixel or the cell tier by bench's rule. Returns (gate, mode, (vw, vh),
+    kernel frame ms, reference ms)."""
+    from rtmm_tpu_torch.ops import tiled, tile_trace
+    from rtmm_tpu_torch.utils.gate import cell_gate, image_gate, verify_plan
+
+    vw, vh, mode = verify_plan(n_units, cfg.width, cfg.height)
+    cfg_v = dataclasses.replace(cfg, width=vw, height=vh)
+    ivp_v = _camera(25.0, cfg_v)
+    a, a_ms = _timed(lambda: tile_trace.render_frame(scene, ivp_v, cfg_v))
+    b, b_ms = _timed(lambda: tiled.render_tiled(scene, ivp_v, cfg_v))
+    gate = (cell_gate if mode == "cell" else image_gate)(a, b)
+    return gate, mode, (vw, vh), a_ms, b_ms
+
+
+def phase_config7(card, ivp, cfg, counted):
+    """Config 7 at full size: a 707x707 level-3 plane (10^6 base
+    triangles, 64M micro-triangles), compressed, at 1080p in windows of
+    the default 256 clusters (K1b + K1c). Returns the kernel table's
+    entry; the scene goes with the phase's locals."""
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+    from rtmm_tpu_torch.ops import tile_trace
+
+    t0 = time.perf_counter()
+    mesh = procedural.make_plane(grid=(GRID_7_FULL, GRID_7_FULL), level=3,
+                                 amplitude=0.05)
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = scene_mod.build_device_scene(mesh, compressed=True,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_tri = mesh.num_triangles
+    del mesh
+    n_units = int(scene.unit_valid.sum())
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    _log(f"[config 7] grid {GRID_7_FULL}x{GRID_7_FULL}: {n_tri} base "
+         f"triangles, level 3, {n_tri * 64} micro-triangles, compressed; "
+         f"U = {scene.num_units} units ({n_units} valid), C = "
+         f"{scene.num_clusters} clusters, {kc} clusters per window; "
+         f"{scene.device_bytes() / 2**20:.1f} MiB on the card; mesh "
+         f"{t_mesh:.1f} s, build {t_build:.1f} s (together "
+         f"{t_mesh + t_build:.1f} s)")
+
+    torch.cuda.reset_peak_memory_stats()
+    tile_trace.reset_launches()
+    (img, stats), first_ms = _timed(lambda: tile_trace.render_frame(
+        scene, ivp, cfg, with_stats=True))
+    launches = counted("tile_trace_windowed_compressed")
+    windows = stats["windows"]
+    nvis = int(stats["kernel_unit_visits"].sum())
+    hit = float((img != torch.tensor(cfg.background, device=img.device))
+                .any(-1).float().mean())
+    _log(f"[config 7 main path] launches of tile_trace_windowed_compressed: "
+         f"{launches} ({windows} windows); visits {nvis}, pin "
+         f"{EXPECTED_VISITS_7} (bench.py:267); {hit:.3f} of the pixels hit; "
+         f"first frame {first_ms:.1f} ms; peak "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on the card")
+    if launches != windows or windows < 1:
+        raise RuntimeError(f"config 7: {launches} launches, {windows} "
+                           "windows")
+    if not bool(torch.isfinite(img).all()) or hit < 0.05:
+        raise RuntimeError("config 7: frame non-finite or empty")
+    if abs(nvis - EXPECTED_VISITS_7) > VISITS_RTOL * EXPECTED_VISITS_7:
+        raise RuntimeError(f"config 7 visits {nvis} outside 5% of the pin")
+
+    launches_w, added = _window_launches(scene, ivp, cfg, kc)
+    _log(f"[config 7] visits per window {added}")
+    args, opts = launches_w[0]
+    k = tile_trace.trace_windowed(*args, **opts)
+    torch.cuda.synchronize()
+    nonempty = (args[1] > 0).nonzero()[:, 0]
+    rows = _budget_rows(args[1], k[2], PLAIN_VISITS_7)
+    p, plain_ms = _timed(lambda: tile_trace.trace_windowed_plain(
+        *args, **opts, rows=rows))
+    _compare_counts("config 7", k[2], p[2], k[3], p[3], rows)
+    err = max(float((k[0][rows] - p[0][rows]).abs().max()),
+              float((k[1][rows] - p[1][rows]).abs().max()))
+    _log(f"[config 7 check] first window, {len(rows)} of {len(nonempty)} "
+         f"non-empty tiles (the most visited, {int(k[2].max())} visits, and "
+         f"evenly spaced others within {PLAIN_VISITS_7} visits): visits "
+         f"{int(k[2][rows].sum())} of {int(k[2].sum())} equal per tile; max "
+         f"|diff| t and normals {err:.3e}; plain {plain_ms:.1f} ms")
+    if len(rows) < min(4, len(nonempty)) or err > MAX_ABS_ERR:
+        raise RuntimeError("config 7: kernel disagrees or too few rows")
+
+    gate, mode, (vw, vh), k_ms, ref_ms = _gated_verify(scene, cfg, n_units)
+    _log(f"[config 7 verify] {card}: bench.py's verify at {vw}x{vh}, {mode} "
+         f"tier: kernel frame vs the XLA tile backend {gate}; kernel frame "
+         f"{k_ms:.1f} ms, XLA tile backend {ref_ms:.1f} ms (host clock)")
+    if mode != "cell" or not gate["ok"]:
+        raise RuntimeError(f"config 7 verify fails: {mode} {gate}")
+
+    def window_once():
+        tile_trace.trace_windowed(*args, **opts)
+
+    window_once()
+    kernel_ms = _events_ms(window_once, reps=3)
+
+    def frame_once():
+        tile_trace.render_frame(scene, ivp, cfg)
+
+    frame_once()
+    frame_ms = _events_ms(frame_once, reps=1, rounds=3)
+    prologue_ms = _events_ms(
+        lambda: tile_trace.ray_frame_inputs(scene, ivp, cfg), reps=1,
+        rounds=3)
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, ivp, cfg)
+    loop_ms = _events_ms(lambda: tile_trace.trace_windows(
+        scene, fi, frus, raymat, cfg, kc), reps=1, rounds=3)
+    _, loop_host_ms = _timed(lambda: tile_trace.trace_windows(
+        scene, fi, frus, raymat, cfg, kc))
+    windows_ms = _time_windows(launches_w)
+    _log(f"[config 7 time] {card}: whole frame {frame_ms:.4f} ms "
+         f"({WIDTH * HEIGHT / (frame_ms * 1e-3) / 1e6:.2f} Mrays/s); "
+         f"prologue (rays, frusta, {scene.num_clusters}-cluster cull) "
+         f"{prologue_ms:.4f} ms; window loop {loop_ms:.4f} ms (host clock "
+         f"{loop_host_ms:.4f} ms), of which its {len(launches_w)} launches, "
+         f"replayed, {windows_ms:.4f} ms (the rest: cluster selection and "
+         f"one host sync per window); shading the rest; first-window "
+         f"launch {kernel_ms:.4f} ms")
+    ccand, ccount, centry, frus_a, raymat_a, carry, meta, tables, _ = args
+    bound = _bound(card, "config 7", int(k[2].sum()),
+                   _nbytes(ccand, ccount, centry, frus_a, raymat_a, meta,
+                           tables, opts["corners"]) + 2 * _nbytes(*carry),
+                   True)
+    _log(f"[config 7 K1] {card}: first-window launch {kernel_ms:.4f} ms at "
+         f"{bound[0] / kernel_ms:.3f} of its bound {bound[0]:.4f} ms "
+         f"({bound[1]}); {windows} windows per frame")
+    entry = _entry("tile_trace_windowed_compressed",
+                   "windowed, compressed grid_su", launches, err, kernel_ms,
+                   plain_ms, bound)
+    entry.update(config="7 full", plain_tiles=len(rows), windows=windows,
+                 visits=nvis, frame_ms=frame_ms, prologue_ms=prologue_ms,
+                 loop_ms=loop_ms, windows_ms=windows_ms,
+                 mesh_s=t_mesh, build_s=t_build, verify=gate)
+    return entry
+
+
+def phase_small_configs(card, counted) -> dict:
+    """Bench configs 1, 2 and 11 on the fused path (K1a): visits against
+    their pins, the frame against the XLA tile backend at full size, and
+    config 11's launch against its plain version on checked rows."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+    from rtmm_tpu_torch.ops import tile_trace
+
+    out = {}
+    for name, (kw, tess, w, h, pin) in SMALL_CONFIGS.items():
+        mesh = procedural.make_icosphere(**kw)
+        scene = scene_mod.build_device_scene(mesh, tessellated=tess,
+                                             device="cuda")
+        n_units = int(scene.unit_valid.sum())
+        cfg = RenderConfig(width=w, height=h)
+        ivp = _camera(25.0, cfg)
+        tile_trace.reset_launches()
+        img, stats = tile_trace.render_frame(scene, ivp, cfg,
+                                             with_stats=True)
+        torch.cuda.synchronize()
+        launches = counted("tile_trace_fused")
+        nvis = int(stats["kernel_unit_visits"].sum())
+        _log(f"[{name}] {mesh.num_triangles} base triangles, level "
+             f"{mesh.max_level}{', tessellated' if tess else ''}: U = "
+             f"{scene.num_units} units, C = {scene.num_clusters} clusters; "
+             f"{w}x{h}; launches of tile_trace_fused {launches}; visits "
+             f"{nvis}, pin {pin}")
+        if launches != 1 or stats["windows"] != 1:
+            raise RuntimeError(f"{name}: {launches} launches")
+        if not bool(torch.isfinite(img).all()):
+            raise RuntimeError(f"{name}: non-finite pixels")
+        if abs(nvis - pin) > VISITS_RTOL * pin:
+            raise RuntimeError(f"{name} visits {nvis} outside 5% of {pin}")
+        gate, mode, size, _, ref_ms = _gated_verify(scene, cfg, n_units)
+        _log(f"[{name} verify] bench.py's verify at {size[0]}x{size[1]}, "
+             f"{mode} tier: kernel frame vs the XLA tile backend {gate}; "
+             f"XLA tile backend {ref_ms:.1f} ms (host clock)")
+        if mode != "pixel" or size != (w, h) or not gate["ok"]:
+            raise RuntimeError(f"{name} verify fails: {mode} {size} {gate}")
+        res = {"visits": nvis, "launches": launches, "verify": gate}
+        if name == "config 11":
+            res["max_abs_err"], res["plain_ms"] = _fused_rows_check(
+                name, scene, ivp, cfg, img)
+
+        def frame_once():
+            tile_trace.render_frame(scene, ivp, cfg)
+
+        frame_once()
+        res["frame_ms"] = _events_ms(frame_once, reps=5)
+        _log(f"[{name} time] {card}: {res['frame_ms']:.4f} ms per {w}x{h} "
+             f"frame, prologue included "
+             f"({w * h / (res['frame_ms'] * 1e-3) / 1e6:.1f} Mrays/s)")
+        out[name] = res
+    return out
+
+
+def _fused_rows_check(name, scene, ivp, cfg, img):
+    """The fused launch of one frame against trace_fused_plain on the
+    _check_rows tiles: counts equal, pixels within MAX_ABS_ERR. Returns
+    (max |diff|, plain ms)."""
+    from rtmm_tpu_torch.ops import tiled, tile_trace
+
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    tx = pw // 32
+    geo = dict(tiles_per_frame=tx * (ph // 32), tx=tx, pw=pw, ph=ph)
+    rows = tile_trace.frame_inputs(scene, ivp, cfg,
+                                   tile_trace.clusters_per_window(scene, cfg))
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    args = (*rows, meta, tables, cfg)
+    k_img, k_vis, k_elig = tile_trace.trace_fused(*args, **opts, **geo)
+    check = _check_rows(rows[1], k_vis)
+    (p_img, p_vis, p_elig), plain_ms = _timed(
+        lambda: tile_trace.trace_fused_plain(*args, **opts, **geo,
+                                             rows=check))
+    _compare_counts(name, k_vis, p_vis, k_elig, p_elig, check)
+    err = 0.0
+    for t in check:
+        y0, x0 = (t // tx) * 32, (t % tx) * 32
+        err = max(err, float((k_img[0, y0:y0 + 32, x0:x0 + 32]
+                              - p_img[0, y0:y0 + 32, x0:x0 + 32]).abs().max()))
+    _log(f"[{name} check] fused launch vs plain on {len(check)} tiles (the "
+         f"{TOP_TILES} with the most visits among them): visits "
+         f"{int(k_vis[check].sum())} of {int(k_vis.sum())} equal per tile; "
+         f"max |diff| {err:.3e}; plain {plain_ms:.1f} ms")
+    if err > MAX_ABS_ERR or not torch.equal(
+            k_img[0, :cfg.height, :cfg.width], img):
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                           "or with the main-path frame")
+    return err, plain_ms
 
 
 def _ring4():
@@ -2145,6 +2426,16 @@ def main() -> int:
     kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
                                    stats["kernel_unit_visits"]))
     kernels.append(phase_windowed7(card, ivp, cfg, counted))
+    # -- 7c-d. config 7 at full size (K1b + K1c); configs 1, 2, 11 (K1a) ------
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    kernels.append(phase_config7(card, ivp, cfg, counted))
+    torch.cuda.empty_cache()
+    _log(f"[config 7] scene freed: {held / 2**20:.1f} MiB allocated on the "
+         f"card before the phase, {torch.cuda.memory_allocated() / 2**20:.1f} "
+         f"after; {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
+    kernels[0]["configs_1_2_11"] = phase_small_configs(card, counted)
+    _log(f"[phases 7c-7d] {time.perf_counter() - t0:.1f} s")
     # -- 8-13. instancing (K1a baked; K1d merged; K1b backstop) ---------------
     t0 = time.perf_counter()
     mesh1 = procedural.make_icosphere(subdivisions=1, level=3, amplitude=0.12)

@@ -62,14 +62,29 @@ class MicroMesh:
     def num_triangles(self) -> int:
         return len(self.triangles)
 
+    def subdivision_levels(self) -> np.ndarray:
+        """(T,) int64 subdivision level of every triangle, read from the
+        vertex-grid sizes (one level_from_vertex_count per distinct size)."""
+        counts = np.fromiter((t.u_positions.shape[0] for t in self.triangles),
+                             np.int64, len(self.triangles))
+        sizes, inv = np.unique(counts, return_inverse=True)
+        per_size = np.array([subdivision.level_from_vertex_count(int(c))
+                             for c in sizes], np.int64)
+        return per_size[inv.reshape(-1)]
+
     @property
     def max_level(self) -> int:
-        return max((t.subdivision_level for t in self.triangles), default=0)
+        return int(self.subdivision_levels().max(initial=0))
 
     def has_uniform_subdivision_level(self) -> bool:
         """mesh.cpp:422-424."""
-        levels = {t.subdivision_level for t in self.triangles}
-        return len(levels) <= 1
+        return np.unique(self.subdivision_levels()).shape[0] <= 1
+
+    def all_present(self) -> bool:
+        """Every micro-vertex of every triangle is present (no stitching);
+        each distinct presence array is read once."""
+        masks = {id(t.u_present): t.u_present for t in self.triangles}
+        return all(bool(m.all()) for m in masks.values())
 
     def base_triangle_indices(self) -> np.ndarray:
         """(T, 3) int32 (mesh.cpp:31-35)."""
@@ -81,23 +96,20 @@ class MicroMesh:
 
         In particular adjacent subdivision levels must differ by at most one
         (the micromesh constraint the reference's internal-level traversal
-        relies on, intersection.hlsl:339-376).
+        relies on, intersection.hlsl:339-376). An edge is the sorted pair of
+        its base vertices; the first offending edge in triangle order is
+        reported. A vertex grid that is no level's raises in
+        subdivision_levels.
         """
-        edge_level: dict[tuple[int, int], list[int]] = {}
-        for t in self.triangles:
-            idx = t.base_vertex_indices
-            lvl = t.subdivision_level
-            for a, b in ((0, 1), (1, 2), (2, 0)):
-                key = tuple(sorted((int(idx[a]), int(idx[b]))))
-                edge_level.setdefault(key, []).append(lvl)
-        for key, levels in edge_level.items():
-            if len(levels) == 2 and abs(levels[0] - levels[1]) > 1:
-                raise ValueError(
-                    f"adjacent subdivision levels differ by >1 on edge {key}")
-        for t in self.triangles:
-            m = subdivision.verts_for_level(t.subdivision_level)
-            if t.u_positions.shape[0] != m:
-                raise ValueError("micro-vertex count does not match level")
+        levels = self.subdivision_levels()
+        if levels.shape[0]:
+            edges, _, first, count, low, high = edge_levels(
+                self.base_triangle_indices(), levels)
+            bad = (count == 2) & (high - low > 1)
+            if bad.any():
+                a, b = edges[first[bad].min()]
+                raise ValueError("adjacent subdivision levels differ by >1 "
+                                 f"on edge {(int(a), int(b))}")
 
     def all_triangles(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Tessellation expansion with dedup (mesh.cpp:54-95).
@@ -136,6 +148,32 @@ class MicroMesh:
         return (np.asarray(out_pos, dtype=np.float32).reshape(-1, 3),
                 np.asarray(out_nrm, dtype=np.float32).reshape(-1, 3),
                 np.asarray(out_faces, dtype=np.int32).reshape(-1, 3))
+
+
+def edge_levels(faces: np.ndarray, levels: np.ndarray):
+    """The base edges of faces (F, 3) with per-face levels (F,): edge k of
+    face f is (f0, f1), (f1, f2), (f2, f0) for k = 0, 1, 2, as the sorted
+    pair of its base vertices. Returns (edges (3F, 2) in face-major
+    order, group (3F,) the index of each one's distinct edge, first (E,)
+    the first of each distinct edge in that order, count (E,) how often
+    it occurs, low / high (E,) the least / greatest level of the faces
+    that hold it)."""
+    faces = np.asarray(faces, dtype=np.int64)
+    levels = np.asarray(levels, dtype=np.int64)
+    edges = np.sort(np.stack([faces[:, [0, 1]], faces[:, [1, 2]],
+                              faces[:, [2, 0]]], axis=1),
+                    axis=-1).reshape(-1, 2)
+    key = edges[:, 0] * (int(faces.max(initial=0)) + 1) + edges[:, 1]
+    _, first, group, count = np.unique(key, return_index=True,
+                                       return_inverse=True,
+                                       return_counts=True)
+    group = group.reshape(-1)
+    edge_lvl = np.repeat(levels, 3)
+    low = np.full(count.shape[0], np.iinfo(np.int64).max, np.int64)
+    high = np.full(count.shape[0], np.iinfo(np.int64).min, np.int64)
+    np.minimum.at(low, group, edge_lvl)
+    np.maximum.at(high, group, edge_lvl)
+    return edges, group, first, count, low, high
 
 
 def barycentric_coords(a: np.ndarray, b: np.ndarray, c: np.ndarray,

@@ -221,7 +221,7 @@ def build_device_scene(mesh: mesh_mod.MicroMesh, tessellated: bool = False,
         return build_compressed_scene(mesh, device=device)
     t_real = mesh.num_triangles
     uniform = (mesh.has_uniform_subdivision_level()
-               and all(t.u_present.all() for t in mesh.triangles))
+               and mesh.all_present())
     groups = None
     if not uniform:
         groups = {}
@@ -496,7 +496,7 @@ def build_compressed_scene(mesh: mesh_mod.MicroMesh,
     corner-index rows that encode each unit's stitched leaf topology.
     """
     uniform = (mesh.has_uniform_subdivision_level()
-               and all(t.u_present.all() for t in mesh.triangles))
+               and mesh.all_present())
     # Level < SUB_LEVEL triangles carry fewer than LPU leaves; the indexed
     # builder packs several triangles per unit instead of leaving unit
     # slots and leaf lanes empty.

@@ -19,10 +19,11 @@ carries the running best hit from window to window.
 The XLA tile backend (the JAX package's "tile" pipeline, and the primary
 trace of the path tracer's `grouped` engine) lives here too, kernel-free:
 candidate_window refines each window's clusters to a front-to-back unit
-list per tile, trace_candidate runs one candidate slot of every tile as a
-batched matrix product of the ray rows with the unit's per-frame table
-(float32; TF32 stays off), and xla_trace_frame / render_tiled drive the
-windows. Its semantics are the shipped ones of the JAX package: w-form
+list per tile, candidate_group prepares a group of candidate slots (the
+units' per-frame tables, gathered or derived, and the recentered rays),
+trace_candidate runs one candidate slot of every tile as a batched matrix
+product of the ray rows with the unit's table (float32; TF32 stays off),
+and xla_trace_frame / render_tiled drive the windows. Its semantics are the shipped ones of the JAX package: w-form
 acceptance, no det guard, the p-form t-window.
 """
 from __future__ import annotations
@@ -103,11 +104,12 @@ def recentered_raymat(raymat: torch.Tensor,
     """Swap the moment rows of gathered ray matrices to per-unit frames.
 
     raymat: (nt, TILE, 8) rows [d, m, s, 1] with m = a x d; centers:
-    (nt, 3). Returns raymat with m' = (a - c) x d = m - c x d."""
-    d = raymat[..., 0:3]
-    m2 = raymat[..., 3:6] - culling._cross(
-        centers[:, None, :].expand_as(d), d)
-    return torch.cat([d, m2, raymat[..., 6:8]], dim=-1)
+    (..., nt, 3), one unit per tile for each leading index. Returns (...,
+    nt, TILE, 8) with m' = (a - c) x d = m - c x d."""
+    c, rm = torch.broadcast_tensors(centers[..., None, :], raymat[..., 0:3])
+    m2 = raymat[..., 3:6] - culling._cross(c, rm)
+    return torch.cat([rm, m2, raymat[..., 6:8].expand(rm.shape[:-1] + (2,))],
+                     dim=-1)
 
 
 def build_frame_inputs(scene: DeviceScene, inv_view_proj,
@@ -402,36 +404,57 @@ def candidate_counts(scene: DeviceScene, inv_view_proj,
     return total
 
 
-def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
-                    unit: torch.Tensor, in_range: torch.Tensor,
-                    cfg: RenderConfig, apex=None):
-    """One candidate slot for a batch of tiles.
+# Candidate slots prepared together: their tables gathered (or derived on
+# a compressed scene), w columns and recentered rays built by one call
+# each. Every step is elementwise per unit, so each slot gets the values a
+# call of its own would give; the slots still fold one by one, in order.
+SLOT_GROUP = 32
 
-    raymat: (nt, TILE, 8); unit: (nt,) int; in_range: (nt,) bool. Returns
-    (t (nt, TILE), normal (nt, TILE, 3) unnormalised, summed over
-    leaves that tie for the closest t).
 
-    The Möller-Trumbore numerators are one batched float32 product of the
-    recentered ray rows with the unit's table (and a w column block
-    (det - u) - v built on the table), then the unguarded reciprocal, the
-    w-form acceptance and the p-form t-window (p = t + s against [t_min +
-    s, t_max + s], the upper side applied to the leaf minimum). Compressed
-    scenes (q_frame None) derive the table per candidate from the unit's
-    record. cfg.debug_guards guards the reciprocal and restores the
-    |det| >= MT_DET_EPS acceptance (the sanitizer render).
-    """
+def candidate_group(scene: DeviceScene, q_frame, raymat: torch.Tensor,
+                    units: torch.Tensor, apex=None):
+    """The inputs of trace_candidate for G candidate slots of nt tiles.
+
+    units: (G, nt) int, slot-major. Returns (rays (G, nt, TILE, 8) raymat
+    recentered on each unit, q (G, nt, 8, 5*LPU) the unit's per-frame
+    table (this frame's t_num in row 7 of the t block) followed by its w
+    column block (det - u) - v, nrm (G, nt, LPU, 3)); compressed scenes
+    (q_frame None) derive the tables from the units' records."""
     lpu = scene.leaves_per_unit
-    unit = unit.to(torch.int64)
-    centers = unit_centers(scene)[unit]                   # (nt, 3)
+    shape = tuple(units.shape)
+    flat = units.reshape(-1).to(torch.int64)
+    centers = unit_centers(scene)[flat]                   # (n, 3)
     if scene.compressed:
-        q, nrm = compressed.derive_q(scene.unit_grid[unit], apex, centers,
+        q, nrm = compressed.derive_q(scene.unit_grid[flat], apex, centers,
                                      corner_lanes(scene))
     else:
-        q = q_frame[unit][..., :4 * lpu]                  # (nt, 8, 4*LPU)
-        nrm = scene.unit_nrm[unit]                        # (nt, LPU, 3)
+        q = q_frame[flat][..., :4 * lpu]                  # (n, 8, 4*LPU)
+        nrm = scene.unit_nrm[flat]                        # (n, LPU, 3)
     q = torch.cat([q, (q[..., 0 * lpu:1 * lpu] - q[..., 1 * lpu:2 * lpu])
                    - q[..., 2 * lpu:3 * lpu]], dim=-1)
-    out = torch.bmm(recentered_raymat(raymat, centers), q)  # (nt, TILE, 5L)
+    rays = recentered_raymat(raymat, centers.reshape(shape + (3,)))
+    return (rays, q.reshape(shape + q.shape[1:]),
+            nrm.reshape(shape + nrm.shape[1:]))
+
+
+def trace_candidate(scene: DeviceScene, rays: torch.Tensor,
+                    q: torch.Tensor, nrm: torch.Tensor,
+                    in_range: torch.Tensor, cfg: RenderConfig):
+    """One candidate slot for a batch of tiles.
+
+    rays, q, nrm: one slot of candidate_group's (nt tiles); in_range:
+    (nt,) bool. Returns (t (nt, TILE), normal (nt, TILE, 3) unnormalised,
+    summed over leaves that tie for the closest t).
+
+    The Möller-Trumbore numerators are one batched float32 product of the
+    recentered ray rows with the unit's table and w column, then the
+    unguarded reciprocal, the w-form acceptance and the p-form t-window
+    (p = t + s against [t_min + s, t_max + s], the upper side applied to
+    the leaf minimum). cfg.debug_guards guards the reciprocal and restores
+    the |det| >= MT_DET_EPS acceptance (the sanitizer render).
+    """
+    lpu = scene.leaves_per_unit
+    out = torch.bmm(rays, q)                              # (nt, TILE, 5L)
     det = out[..., 0 * lpu:1 * lpu]
     if cfg.debug_guards:
         # The sanitizer render (utils/debug.py): a guarded division and the
@@ -444,7 +467,7 @@ def trace_candidate(scene: DeviceScene, raymat: torch.Tensor, q_frame,
     u = out[..., 1 * lpu:2 * lpu] * inv
     v = out[..., 2 * lpu:3 * lpu] * inv
     ww = out[..., 4 * lpu:5 * lpu] * inv
-    s = raymat[..., 6:7]
+    s = rays[..., 6:7]
     p = out[..., 3 * lpu:4 * lpu] * inv
     ok = ((torch.minimum(torch.minimum(u, v), ww) >= -intersect.MT_UV_EPS)
           & (p >= cfg.t_min + s) & in_range[:, None, None])
@@ -505,12 +528,17 @@ def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
             sl = slice(c0, c0 + tile_chunk)
             rm, cnd, cnt = fi.raymat[sl], cand[sl], count[sl]
             bt, bn = best_t[sl], best_n[sl]
-            for c in range(min(cand.shape[1], int(cnt.max()))):
-                tb, nb = trace_candidate(scene, rm, fi.q_frame, cnd[:, c],
-                                         c < cnt, cfg, apex=fi.apex)
-                take = tb < bt
-                bt = torch.where(take, tb, bt)
-                bn = torch.where(take[..., None], nb, bn)
+            n_slots = min(cand.shape[1], int(cnt.max()))
+            for g0 in range(0, n_slots, SLOT_GROUP):
+                g1 = min(g0 + SLOT_GROUP, n_slots)
+                rays, q, nrm = candidate_group(scene, fi.q_frame, rm,
+                                               cnd[:, g0:g1].T, fi.apex)
+                for j in range(g1 - g0):
+                    tb, nb = trace_candidate(scene, rays[j], q[j], nrm[j],
+                                             g0 + j < cnt, cfg)
+                    take = tb < bt
+                    bt = torch.where(take, tb, bt)
+                    bn = torch.where(take[..., None], nb, bn)
             bt_out.append(bt)
             bn_out.append(bn)
         best_t, best_n = torch.cat(bt_out), torch.cat(bn_out)

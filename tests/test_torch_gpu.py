@@ -223,6 +223,47 @@ def test_windowed_kernel_matches_plain(cuda, compressed, grid):
     _check_image(img, fused, w, h)
 
 
+def test_config7_construction_windows_on_card(cuda):
+    """Config 7's construction (a level-3 plane, compressed) at a 200x200
+    grid through render_frame in windows of 16 clusters: one windowed
+    launch per window, and the first window's launch bit-equal to its
+    plain version on the most visited tiles and evenly spaced others."""
+    mesh = procedural.make_plane(grid=(200, 200), level=3, amplitude=0.05)
+    scene = scene_mod.build_device_scene(mesh, compressed=True, device=cuda)
+    w, h = 320, 192
+    cfg = RenderConfig(width=w, height=h, kernel_clusters_per_window=16)
+    name = "tile_trace_windowed_compressed"
+    before = tile_trace.LAUNCHES[name]
+    img, st = tile_trace.render_frame(scene, _ivp(w, h), cfg,
+                                      with_stats=True)
+    torch.cuda.synchronize()
+    assert scene.num_clusters == 1250 and st["windows"] > 1
+    assert tile_trace.LAUNCHES[name] == before + st["windows"]
+    assert bool(torch.isfinite(img).all())
+    fi, frus, raymat = tile_trace.ray_frame_inputs(scene, _ivp(w, h), cfg)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+    ccand, ccount, centry, _, _ = tiled.cluster_window(
+        scene, fi.apex, fi.cluster_hit, 16)
+    n = frus.shape[0]
+    carry = (torch.full((n, 1024), tile_trace.BIG, device=cuda),
+             torch.zeros((n, 3, 1024), device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda))
+    k = tile_trace.trace_windowed(ccand, ccount, centry, frus, raymat,
+                                  carry, meta, tables, cfg, **opts)
+    nonempty = (ccount > 0).nonzero()[:, 0]
+    by_visits = nonempty[torch.argsort(k[2][nonempty], descending=True,
+                                       stable=True)]
+    rows = sorted(set(by_visits[:4].tolist())
+                  | set(nonempty[::max(1, len(nonempty) // 4)].tolist()))
+    p = tile_trace.trace_windowed_plain(ccand, ccount, centry, frus, raymat,
+                                        carry, meta, tables, cfg, **opts,
+                                        rows=rows)
+    assert int(k[2][rows].sum()) > 0
+    for a, b in zip(k, p):
+        assert torch.equal(a[rows], b[rows])
+
+
 def test_ray_matrix_input_kernel(cuda):
     scene = _scene(1, 3, cuda)
     cfg = RenderConfig(width=256, height=64, kernel_raygen=False)

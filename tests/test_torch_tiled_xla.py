@@ -147,3 +147,20 @@ def test_tile_pipeline_through_windows(scenes):
     b = tiled.render_tiled(port, ivp, RenderConfig(
         width=w, height=h, clusters_per_window=1, tile_chunk=1))
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_slot_groups_change_nothing(scenes, compressed, monkeypatch):
+    """Candidate slots take their tables in groups of SLOT_GROUP (one
+    gather or derive per group): the frame is bit for bit the one of a
+    gather or derive per slot, on a plane of several hundred slots."""
+    mesh = procedural.make_plane(grid=(24, 24), level=3, amplitude=0.05)
+    port = scene_mod.build_device_scene(mesh, compressed=compressed,
+                                        device="cpu")
+    w, h = 96, 64
+    cfg = RenderConfig(width=w, height=h)
+    a = tiled.render_tiled(port, _ivp(w, h), cfg)
+    monkeypatch.setattr(tiled, "SLOT_GROUP", 1)
+    b = tiled.render_tiled(port, _ivp(w, h), cfg)
+    assert torch.equal(a, b)
+    assert (a != torch.tensor(cfg.background)).any(-1).sum() > 400
