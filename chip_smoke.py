@@ -116,7 +116,15 @@ Phases (any failure raises and exits non-zero):
      (g) dryrun_multichip(4). Each layout's ms per frame (CUDA events per
      rank, host clock on rank 0) and K1b launches per rank, counted from
      0 in each rank; ranks of gloo worlds share the one card, so their
-     times measure overhead, not scaling.
+     times measure overhead, not scaling;
+ 21. the port's benchmark, rtmm_tpu_torch/bench.py: its default command
+     (config 3) in a process of its own, the row's keys bench.py's less
+     vs_baseline, its value positive, its visits within 5% of the pin,
+     its verify against the XLA tile backend within budget, and each
+     stage's launches as expected (one batched fused launch per orbit
+     call); then its config 8 (two-level instanced, K1d) and config 5
+     (path-traced, K1d and K2) rows in this process with 4-frame orbits,
+     their launches counted from 0 and their verifies within budget.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
@@ -2233,6 +2241,82 @@ def phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels):
     _log(f"[phase 20] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the port's benchmark (rtmm_tpu_torch/bench.py), its three
+# kinds of row: primary (the default command, config 3, in a process of
+# its own), two-level instanced (config 8) and path-traced (config 5),
+# the last two with short orbits.
+BENCH_ORBIT = 4
+BENCH_TIMEOUT_S = 300
+# Launches of each stage of the default row: config 3's 32-frame orbit is
+# 32 x 2,040 tiles, one batched launch per call (a warm-up and 4 timed);
+# the visit count and the verify's kernel frame one each.
+BENCH_LAUNCHES_3 = {"orbit": {"tile_trace_fused": 5},
+                    "visits": {"tile_trace_fused": 1},
+                    "verify": {"tile_trace_fused": 1}}
+
+
+def _bench_checks(name, row, kind):
+    """A row of rtmm_tpu_torch.bench: bench.py's keys less vs_baseline, a
+    positive value and the verify within its budgets."""
+    from rtmm_tpu_torch import bench
+    _log(f"[bench row {name}] {json.dumps(row)}")
+    if tuple(row) != bench.ROW_KEYS[kind]:
+        raise RuntimeError(f"bench {name}: keys {tuple(row)}, expected "
+                           f"{bench.ROW_KEYS[kind]}")
+    if not (row["value"] > 0 and row["verify_npix"] <= row["verify_budget"]
+            and row["verify_nbig"] <= row["verify_big_budget"]):
+        raise RuntimeError(f"bench {name}: row fails: {row}")
+
+
+def phase_bench():
+    """python3 -m rtmm_tpu_torch.bench (config 3) as a subprocess, its
+    row and per-stage launches held to bench.py's; then the module's
+    config 8 and config 5 rows in this process with 4-frame orbits, their
+    launches counted from 0."""
+    from rtmm_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rtmm_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    _log(f"[bench config 3] rc {proc.returncode}, "
+         f"{time.perf_counter() - t_phase:.1f} s; stderr:\n"
+         f"{proc.stderr.strip()[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"bench config 3: rc {proc.returncode}: "
+                           f"{proc.stdout[-500:]}")
+    row = json.loads(lines[-1])
+    _bench_checks("config 3", row, "image")
+    if abs(row["visits"] - EXPECTED_VISITS) > VISITS_RTOL * EXPECTED_VISITS:
+        raise RuntimeError(f"bench config 3: visits {row['visits']}")
+    tag = "[bench launches] "
+    launches = json.loads(next(line for line in proc.stderr.splitlines()
+                               if line.startswith(tag))[len(tag):])
+    for stage, want in BENCH_LAUNCHES_3.items():
+        if launches.get(stage) != want:
+            raise RuntimeError(f"bench config 3 {stage}: launches "
+                               f"{launches.get(stage)}, expected {want}")
+    for n, kind, kernels in ((8, "instanced", ("tile_trace_raw",)),
+                             (5, "pathtrace", ("tile_trace_raw",
+                                               "group_trace"))):
+        t0 = time.perf_counter()
+        _reset_all()
+        stages = bench._Stages("cuda")
+        row = bench.run_row(n, "cuda", frames=BENCH_ORBIT, stages=stages)
+        seconds = {k: round(v, 3) for k, v in stages.seconds.items()}
+        _log(f"[bench config {n}] {BENCH_ORBIT}-frame orbits, "
+             f"{time.perf_counter() - t0:.1f} s: stage seconds {seconds}, "
+             f"launches {stages.launches}")
+        _bench_checks(f"config {n}", row, kind)
+        if any(not stages.launches["orbit"].get(k) for k in kernels):
+            raise RuntimeError(f"bench config {n}: the orbit launched "
+                               f"{stages.launches['orbit']}, not {kernels}")
+    _log(f"[phase 21] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2470,6 +2554,8 @@ def main() -> int:
     _log(f"[phases 16-19] {time.perf_counter() - t0:.1f} s")
     # -- 20. multi-device rendering -----------------------------------------
     phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels)
+    # -- 21. the port's benchmark -------------------------------------------
+    phase_bench()
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

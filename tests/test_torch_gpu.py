@@ -588,3 +588,29 @@ def test_sharded_trace_matches_single_card(cuda, shape, backend):
     assert sum(int(r["trace"]["visits"].sum()) for r in results) == int(
         vis0.sum()) > 0
     assert windows >= 2
+
+
+def test_bench_row_on_card(cuda, capsys):
+    """python3 -m rtmm_tpu_torch.bench --config 2 on the card: rc 0, a
+    positive value, the pin's 95 visits, bench.py's verify within budget,
+    bench.py's keys, and the orbit through one batched fused launch."""
+    import json
+
+    from rtmm_tpu_torch import bench
+
+    capsys.readouterr()
+    assert bench.main(["--config", "2"]) == 0
+    out = capsys.readouterr()
+    row = json.loads(out.out.strip().splitlines()[-1])
+    assert tuple(row) == bench.ROW_KEYS["image"]
+    assert row["value"] > 0
+    assert row["visits"] == row["visits_expected"] == 95
+    assert row["verify_mode"] == "pixel"
+    assert row["verify_npix"] <= row["verify_budget"]
+    assert row["verify_nbig"] <= row["verify_big_budget"]
+    launches = json.loads(next(
+        line for line in out.err.splitlines()
+        if line.startswith("[bench launches] "))[len("[bench launches] "):])
+    # 256 frames of 64 tiles in one launch per call: warm-up + 4 calls.
+    assert launches["orbit"] == {"tile_trace_fused": 5}
+    assert launches["visits"] == {"tile_trace_fused": 1}

@@ -27,8 +27,10 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 # Modules the scan must reach by name: the main path's kernel wrapper,
-# and the multi-device path, whose ranks run outside the test process.
+# the multi-device path, whose ranks run outside the test process, and
+# the benchmark, which runs where JAX is not installed.
 NAMED = ("rtmm_tpu_torch/ops/tile_trace.py", "chip_smoke.py",
+         "rtmm_tpu_torch/bench.py",
          "rtmm_tpu_torch/parallel/sharding.py",
          "rtmm_tpu_torch/parallel/launch.py",
          "rtmm_tpu_torch/parallel/entry.py")
@@ -50,7 +52,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_entry_points_leave_jax_unloaded():
     code = ("import sys, rtmm_tpu_torch.app, rtmm_tpu_torch.render.renderer, "
-            "rtmm_tpu_torch.parallel.entry; "
+            "rtmm_tpu_torch.parallel.entry, rtmm_tpu_torch.bench; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.') or m == 'rtmm_tpu' "
             "or m.startswith('rtmm_tpu.')))")
