@@ -27,6 +27,14 @@ Phases (any failure raises and exits non-zero):
      counted (one frame + an 8-frame orbit), visits within 5% of the pin,
      kernel vs plain on the full frame, the frame against config 6 (the
      same mesh with precomputed tables, K1a), timing and bound;
+ 6b. the batched frame prologue (tile_trace.frames_inputs: one pass over
+     every frame of a launch chunk) on the orbits of configs 3 (64 frames:
+     two chunks), 9 (K1c), 6 (32 frames at 1080p each) and 1 (256 frames
+     at 256x256): its rows bit-equal to per-frame frame_inputs, one fused
+     launch per chunk (counted), every frame equal to render_frame; the
+     chunk's prologue kernel events and peak memory (torch.profiler), its
+     ms per frame beside the per-frame loop's, the kernel's and the
+     orbit's, and the orbit's device busy share;
   7. windowed walks (K1b): (a) config 3 with 4 clusters per window,
      against phase 3's fused frame, and (b) config 7's construction
      (level-3 plane, compressed) cut from a 707x707 to a 160x160 grid
@@ -458,7 +466,8 @@ def _time_windows(launches) -> float:
 
 def phase_config9(card, ivp, cfg, counted, geo):
     """Config 9 at full size: compressed fused (K1c). Returns the kernel
-    table's entry and the scene."""
+    table's entry, the scene and config 6's (the same mesh, precomputed
+    tables)."""
     from rtmm_tpu_torch.models import procedural, scene as scene_mod
     from rtmm_tpu_torch.ops import tile_trace
     from rtmm_tpu_torch.utils.gate import image_gate
@@ -550,7 +559,144 @@ def phase_config9(card, ivp, cfg, counted, geo):
     _k1_vs_before(card, "config 9", kernel_ms, bound)
     return _entry("tile_trace_fused_compressed",
                   "fused, compressed grid_su", launches, err, kernel_ms,
-                  plain_ms, bound), scene
+                  plain_ms, bound), scene, scene6
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (float32 compared as int32)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _profiled(fn) -> dict:
+    """stats.device_busy of one call of fn under torch.profiler."""
+    from rtmm_tpu_torch.utils import stats
+    with tempfile.TemporaryDirectory() as logdir:
+        with stats.profiler_trace(logdir):
+            fn()
+        return stats.device_busy(logdir)
+
+
+def _batched_prologue(card, name, scene, cfg, ivps, kernel) -> dict:
+    """One configuration's orbit through the batched prologue: its rows
+    bit-equal to per-frame frame_inputs, one fused launch per chunk, each
+    frame equal to render_frame; the chunk's prologue kernel events, peak
+    memory and ms per frame beside the per-frame loop's, the kernel's and
+    the orbit's, and the orbit's busy share."""
+    from rtmm_tpu_torch.ops import tiled, tile_trace
+
+    n = len(ivps)
+    ivps = torch.as_tensor(ivps, dtype=torch.float32, device=scene.device)
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    f = tile_trace.frames_per_launch(cfg, n)
+    chunk = ivps[:f]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    chunk_rows = tile_trace.frames_inputs(scene, chunk, cfg, kc)
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    rows = tile_trace.frames_inputs(scene, ivps, cfg, kc)
+    per = [torch.cat(parts) for parts in zip(*(
+        tile_trace.frame_inputs(scene, ivps[k], cfg, kc) for k in range(n)))]
+    differ = [nm for nm, a, b in zip(("ccand", "ccount", "centry", "frus"),
+                                     rows, per) if not _bit_equal(a, b)]
+    if differ:
+        raise RuntimeError(f"{name}: the batched prologue's {differ} differ "
+                           "from the per-frame rows")
+
+    _reset_all()
+    orbit = tile_trace.render_frames(scene, ivps, cfg)
+    torch.cuda.synchronize()
+    _expect_launches(f"{name} orbit of {n}", {kernel: n // f})
+    for k in range(n):
+        if not torch.equal(orbit[k],
+                           tile_trace.render_frame(scene, ivps[k], cfg)):
+            raise RuntimeError(f"{name}: orbit frame {k} differs from "
+                               "render_frame")
+    del orbit
+
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    geo = dict(tiles_per_frame=(pw // 32) * (ph // 32), tx=pw // 32, pw=pw,
+               ph=ph)
+    meta, tables, opts = tile_trace.scene_tables(scene)
+
+    def prologue():
+        tile_trace.frames_inputs(scene, chunk, cfg, kc)
+
+    def per_frame():
+        for k in range(f):
+            tile_trace.frame_inputs(scene, chunk[k], cfg, kc)
+
+    def launch():
+        tile_trace.trace_fused(*chunk_rows, meta, tables, cfg, **opts, **geo)
+
+    def orbit_once():
+        tile_trace.render_frames(scene, ivps, cfg)
+
+    events = _profiled(prologue)["kernels"]
+    events_1 = _profiled(lambda: tile_trace.frames_inputs(
+        scene, chunk[:1], cfg, kc))["kernels"]
+    busy = _profiled(orbit_once)
+    for fn in (prologue, per_frame, launch, orbit_once):
+        fn()
+    res = {"frames": n, "frames_per_launch": f, "launches": n // f,
+           "prologue_events_per_chunk": events,
+           "prologue_events_one_frame": events_1,
+           "prologue_peak_mib": peak_mib,
+           "prologue_ms_per_frame": _events_ms(prologue, reps=1) / f,
+           "per_frame_loop_ms_per_frame": _events_ms(per_frame, reps=1,
+                                                     rounds=3) / f,
+           "kernel_ms_per_frame": _events_ms(launch, reps=1) / f,
+           "orbit_ms_per_frame": _events_ms(orbit_once, reps=1) / n,
+           "orbit_busy_share": busy["share"]}
+    mrays = cfg.width * cfg.height / (res["orbit_ms_per_frame"] * 1e-3) / 1e6
+    _log(f"[batched prologue {name}] {card}: {n} frames at {cfg.width}x"
+         f"{cfg.height}, C = {scene.num_clusters}, {n // f} launch(es) of "
+         f"{f} frames ({kernel}); rows bit-equal to per-frame frame_inputs "
+         f"({rows[0].shape[0]} rows: ccand, ccount, centry, frus); every "
+         f"frame equal to render_frame. Chunk prologue: {events} kernel "
+         f"events ({events_1} for one frame alone), peak memory "
+         f"{peak_mib:.1f} MiB, "
+         f"{res['prologue_ms_per_frame']:.4f} ms/frame (per-frame loop "
+         f"{res['per_frame_loop_ms_per_frame']:.4f}); kernel "
+         f"{res['kernel_ms_per_frame']:.4f} ms/frame; orbit "
+         f"{res['orbit_ms_per_frame']:.4f} ms/frame ({mrays:.1f} Mrays/s), "
+         f"device busy {busy['busy_us'] / 1e3:.4f} of "
+         f"{busy['window_us'] / 1e3:.4f} ms: share {busy['share']}")
+    if busy["share"] is None or not events:
+        raise RuntimeError(f"{name}: the profiler trace holds no CUDA "
+                           f"kernel event: {busy}")
+    return res
+
+
+def phase_batched_prologue(card, scenes, cfg) -> dict:
+    """The batched frame prologue (tile_trace.frames_inputs) on the fused
+    orbits of bench configs 3 (in two launch chunks), 9 (K1c), 6 and 1 at
+    their bench sizes and frames per call."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.models import procedural, scene as scene_mod
+
+    def orbit(n, c):
+        return np.stack([_camera(25.0 + 360.0 / n * k, c) for k in range(n)])
+
+    out = {}
+    for name, n, kernel in (("config 3", 2 * ORBIT_FRAMES, "tile_trace_fused"),
+                            ("config 9", ORBIT_FRAMES,
+                             "tile_trace_fused_compressed"),
+                            ("config 6", ORBIT_FRAMES, "tile_trace_fused")):
+        out[name] = _batched_prologue(card, name, scenes[name], cfg,
+                                      orbit(n, cfg), kernel)
+    kw, tess, w, h, _ = SMALL_CONFIGS["config 1"]
+    scene1 = scene_mod.build_device_scene(procedural.make_icosphere(**kw),
+                                          tessellated=tess, device="cuda")
+    cfg1 = RenderConfig(width=w, height=h)
+    out["config 1"] = _batched_prologue(card, "config 1", scene1, cfg1,
+                                        orbit(256, cfg1), "tile_trace_fused")
+    return out
 
 
 def phase_windowed3(card, scene, ivp, cfg, counted, img_fused,
@@ -1866,10 +2012,7 @@ def phase_stats(card, scene, ivp, ivps, cfg):
     _img, kst = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
     visits = int(kst["kernel_unit_visits"].sum())
     eligible = int(kst["kernel_unit_eligible"].sum())
-    with tempfile.TemporaryDirectory() as logdir:
-        with stats.profiler_trace(logdir):
-            tile_trace.render_frames(scene, ivps, cfg)
-        busy = stats.device_busy(logdir)
+    busy = _profiled(lambda: tile_trace.render_frames(scene, ivps, cfg))
     torch.cuda.synchronize()
     _expect_launches("stats path", {"tile_trace_fused": 4})
     _log(f"[stats] heatmap {hm.shape} in {hm_s:.1f} s: {int(hm.sum())} "
@@ -2463,9 +2606,7 @@ def main() -> int:
     mrays = WIDTH * HEIGHT / (per_frame * 1e-3) / 1e6
     # The same orbit's kernel launch alone (its inputs built beforehand):
     # orbit minus this is the prologue's share.
-    batch = [torch.cat(parts) for parts in zip(*(
-        tile_trace.frame_inputs(scene, ivps[k], cfg, kc)
-        for k in range(ORBIT_FRAMES)))]
+    batch = tile_trace.frames_inputs(scene, ivps, cfg, kc)
 
     def batch_once():
         tile_trace.trace_fused(*batch, scene.cluster_unit_meta,
@@ -2504,8 +2645,13 @@ def main() -> int:
                        else "bytes"))]
 
     # -- 6. config 9: compressed, fused (K1c) -------------------------------
-    entry9, scene9 = phase_config9(card, ivp, cfg, counted, geo)
+    entry9, scene9, scene6 = phase_config9(card, ivp, cfg, counted, geo)
     kernels.append(entry9)
+    # -- 6b. the batched frame prologue (K1a, K1c) ---------------------------
+    kernels[0]["batched_prologue"] = phase_batched_prologue(
+        card, {"config 3": scene, "config 9": scene9, "config 6": scene6},
+        cfg)
+    del scene6
     # -- 7. windowed walks (K1b) ---------------------------------------------
     kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
                                    stats["kernel_unit_visits"]))

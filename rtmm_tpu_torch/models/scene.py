@@ -14,6 +14,7 @@ block — the TLAS role the trace kernel walks front to back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Mapping
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 from ..ops import compressed as comp
 from ..ops import precompute, subdivision
 from ..ops.culling import UNITS_PER_CLUSTER
+from ..ops.intersect import MT_UV_EPS
 from . import mesh as mesh_mod
 
 BIG = np.float32(1e30)
@@ -132,6 +134,21 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.unit_aabb_min.device
+
+    @functools.cached_property
+    def exit_aabb(self) -> torch.Tensor:
+        """(6,) f32 [min xyz, max xyz]: the union of valid cluster AABBs,
+        inflated so that every hit the MT epilogue can ACCEPT (uv within
+        MT_UV_EPS outside a leaf, i.e. up to ~eps * extent outside the
+        exact geometry AABB) still lies inside. A ray's slab EXIT through
+        this box upper-bounds the apex-relative t of any hit it may still
+        find. It reads only the scene's cluster boxes, so it is computed
+        once per scene, on first use (ops/tiled.scene_exit_aabb)."""
+        valid = self.cluster_valid[:, None]
+        mn = torch.where(valid, self.cluster_aabb_min, 1e30).amin(dim=0)
+        mx = torch.where(valid, self.cluster_aabb_max, -1e30).amax(dim=0)
+        pad = 2.0 * MT_UV_EPS * (mx - mn) + 1e-6
+        return torch.cat([mn - pad, mx + pad]).to(torch.float32)
 
     def device_bytes(self) -> int:
         """Bytes of every tensor the scene holds on its device."""

@@ -17,6 +17,8 @@ camera is automatically rejected because all plane dots flip sign.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _f32
@@ -50,7 +52,9 @@ def tile_frustums(inv_view_proj, width: int, height: int,
     render_width/height (multiples of TILE_W/TILE_H) define the padded tile
     grid; width/height define the NDC mapping (as in raygen.generate_rays).
     Returns (apex (3,), normals (tiles, 4, 3)): points p inside a tile's
-    cone satisfy dot(n_i, p - apex) >= 0 for all 4 planes.
+    cone satisfy dot(n_i, p - apex) >= 0 for all 4 planes. Leading axes on
+    inv_view_proj (F, 4, 4) batch frames: apex (F, 3), normals (F, tiles,
+    4, 3), each frame's values those of its own call.
     """
     m = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=device)
     rw = render_width or width
@@ -63,8 +67,8 @@ def tile_frustums(inv_view_proj, width: int, height: int,
         v = _f32.div(_f32.const(py, m), float(height))
         ndc_x = u * 2.0 - 1.0
         ndc_y = -(v * 2.0 - 1.0)
-        p = [m[i, 0] * ndc_x + m[i, 1] * ndc_y + (m[i, 2] * z + m[i, 3])
-             for i in range(4)]
+        p = [m[..., i, 0] * ndc_x + m[..., i, 1] * ndc_y
+             + (m[..., i, 2] * z + m[..., i, 3]) for i in range(4)]
         return torch.stack([p[0] / p[3], p[1] / p[3], p[2] / p[3]], dim=-1)
 
     # All primary rays pass through the camera position (the cone apex).
@@ -77,7 +81,36 @@ def tile_frustums(inv_view_proj, width: int, height: int,
     apex = _ray_closest_point(n00, f00 - n00, n11, f11 - n11)
 
     normals = _cone_grid_normals(m, width, height, rw, rh, 1, 1)
-    return apex, normals.reshape(ty * tx, 4, 3)
+    return apex, normals.reshape(*m.shape[:-2], ty * tx, 4, 3)
+
+
+@functools.lru_cache(maxsize=16)
+def _corner_ndc(width: int, height: int, rw: int, rh: int, n_rows: int,
+                n_cols: int, device: torch.device):
+    """(ndc_x, ndc_y), each (ty, tx, n_rows+1, n_cols+1): the NDC
+    coordinates of every tile's sub-cone corner pixels. They depend on the
+    frame's size and the grid only, so they are built once per shape and
+    device (the cache holds a few small tensors; callers only read them).
+    """
+    tx = rw // TILE_W
+    ty = rh // TILE_H
+    sw = TILE_W // n_cols
+    sh = TILE_H // n_rows
+    f32 = torch.float32
+
+    cx = (torch.arange(tx, dtype=f32, device=device) * TILE_W)[None, :].expand(
+        ty, tx)
+    cy = (torch.arange(ty, dtype=f32, device=device) * TILE_H)[:, None].expand(
+        ty, tx)
+    # Corner pixel grid: (ty, tx, n_rows+1, n_cols+1)
+    gx = torch.arange(n_cols + 1, dtype=f32, device=device) * sw
+    gy = torch.arange(n_rows + 1, dtype=f32, device=device) * sh
+    px = cx[..., None, None] + gx[None, None, None, :]
+    py = cy[..., None, None] + gy[None, None, :, None]
+
+    u = _f32.div(px, float(width))
+    v = _f32.div(py, float(height))
+    return u * 2.0 - 1.0, -(v * 2.0 - 1.0)
 
 
 def _cone_grid_normals(m: torch.Tensor, width: int, height: int,
@@ -86,44 +119,31 @@ def _cone_grid_normals(m: torch.Tensor, width: int, height: int,
     sub-cones per tile: one batched unproject over all (tile, corner)
     pairs and one cross product.
 
-    Returns (tiles, n_rows*n_cols, 4, 3).
+    m is (4, 4), or (F, 4, 4) for F frames in one pass (m[..., i, j]
+    broadcast over the corner grid). Returns (..., tiles, n_rows*n_cols,
+    4, 3).
     """
     tx = rw // TILE_W
     ty = rh // TILE_H
-    sw = TILE_W // n_cols
-    sh = TILE_H // n_rows
-    dev = m.device
-    f32 = torch.float32
-
-    cx = (torch.arange(tx, dtype=f32, device=dev) * TILE_W)[None, :].expand(
-        ty, tx)
-    cy = (torch.arange(ty, dtype=f32, device=dev) * TILE_H)[:, None].expand(
-        ty, tx)
-    # Corner pixel grid: (ty, tx, n_rows+1, n_cols+1)
-    gx = torch.arange(n_cols + 1, dtype=f32, device=dev) * sw
-    gy = torch.arange(n_rows + 1, dtype=f32, device=dev) * sh
-    px = cx[..., None, None] + gx[None, None, None, :]
-    py = cy[..., None, None] + gy[None, None, :, None]
-
-    u = _f32.div(px, float(width))
-    v = _f32.div(py, float(height))
-    ndc_x = u * 2.0 - 1.0
-    ndc_y = -(v * 2.0 - 1.0)
+    ndc_x, ndc_y = _corner_ndc(width, height, rw, rh, n_rows, n_cols,
+                               m.device)
+    lead = m.shape[:-2]
+    mg = m[..., None, None, None, None, :, :]     # (..., 1, 1, 1, 1, 4, 4)
 
     def unproj(z):
-        p = [m[i, 0] * ndc_x + m[i, 1] * ndc_y + (m[i, 2] * z + m[i, 3])
-             for i in range(4)]
+        p = [mg[..., i, 0] * ndc_x + mg[..., i, 1] * ndc_y
+             + (mg[..., i, 2] * z + mg[..., i, 3]) for i in range(4)]
         return torch.stack([p[0] / p[3], p[1] / p[3], p[2] / p[3]], dim=-1)
 
     d = unproj(1.0) - unproj(0.0)
     d = d / _norm(d, keepdim=True)
 
     # Per cone: corners TL/TR/BR/BL; edges (TL,TR),(TR,BR),(BR,BL),(BL,TL).
-    tl = d[:, :, :-1, :-1]
-    tr = d[:, :, :-1, 1:]
-    br = d[:, :, 1:, 1:]
-    bl = d[:, :, 1:, :-1]
-    a = torch.stack([tl, tr, br, bl], dim=-2)       # (ty,tx,nr,nc,4,3)
+    tl = d[..., :-1, :-1, :]
+    tr = d[..., :-1, 1:, :]
+    br = d[..., 1:, 1:, :]
+    bl = d[..., 1:, :-1, :]
+    a = torch.stack([tl, tr, br, bl], dim=-2)       # (...,ty,tx,nr,nc,4,3)
     b = torch.stack([tr, br, bl, tl], dim=-2)
     n = _cross(a, b)
     # Orient inward. The corner-sum direction lies strictly inside the
@@ -132,8 +152,9 @@ def _cone_grid_normals(m: torch.Tensor, width: int, height: int,
     sign = torch.sign((n * dc).sum(-1, keepdim=True))
     sign = torch.where(sign == 0.0, 1.0, sign)
     n = n * sign
-    # (ty, tx, nr, nc, 4, 3) -> (tiles, nr*nc, 4, 3), j = row*nc + col.
-    return n.reshape(ty * tx, n_rows * n_cols, 4, 3)
+    # (..., ty, tx, nr, nc, 4, 3) -> (..., tiles, nr*nc, 4, 3),
+    # j = row*nc + col.
+    return n.reshape(*lead, ty * tx, n_rows * n_cols, 4, 3)
 
 
 # Default sub-cones per tile (vertical 8-px strips of the 32-px tile).
@@ -153,7 +174,8 @@ def tile_sub_frustums(inv_view_proj, width: int, height: int,
     hit it could still beat.
 
     Returns normals (tiles, n_sub, 4, 3), sub index j = row * cols + col,
-    with the same orientation convention as tile_frustums.
+    with the same orientation convention as tile_frustums; (F, tiles,
+    n_sub, 4, 3) for inv_view_proj (F, 4, 4).
     """
     if n_sub % n_rows or TILE_H % n_rows:
         raise ValueError(f"n_rows={n_rows} must divide n_sub={n_sub} and "
@@ -204,6 +226,8 @@ def aabb_distance(apex: torch.Tensor, aabb_min: torch.Tensor,
     """Conservative apex -> AABB distance lower bound.
 
     apex (3,); aabb_min/max (..., 3) -> (...,). Zero inside the box.
+    Plain broadcasting: an apex per frame (F, 1, 3) against boxes (C, 3)
+    gives (F, C).
     """
     return _norm(torch.clamp_min(
         torch.maximum(aabb_min - apex, apex - aabb_max), 0.0))

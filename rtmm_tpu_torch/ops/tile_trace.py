@@ -32,7 +32,9 @@ rows, or, in a compressed scene, derived from its grid-vertex record.
   LAUNCHES               kernel launches so far, per kernel entry.
   render_frame           one frame (render_pallas): fused when every
                          tile's cluster list fits one launch, else windowed.
-  render_frames          F frames (render_pallas_frames).
+  render_frames          F frames (render_pallas_frames): each launch
+                         chunk's inputs in one pass (frames_inputs, the
+                         reference's jax.vmap(frame_inputs)).
 
 The wrappers launch the CUDA kernel (csrc/tile_trace.cu) on CUDA tensors
 and run the plain version on CPU tensors.
@@ -780,21 +782,39 @@ def cluster_lists(scene: DeviceScene, fi: tiled.FrameInputs, kc: int):
     """Per-tile front-to-back cluster lists of every cluster the tile's
     frustum hits, exactly jax.lax.top_k's: ascending apex distance, ties
     to the lower cluster index, centry = +inf past ccount. Returns (ccand
-    (tiles, kc) int32, ccount (tiles,) int32, centry (tiles, kc) f32)."""
+    (tiles, kc) int32, ccount (tiles,) int32, centry (tiles, kc) f32),
+    with a leading frame axis when fi is batched."""
     return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc)[:3]
+
+
+def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
+                  kc: int):
+    """The launch inputs of F frames for in-kernel raygen, built in one
+    pass over all frames (render_pallas_frames' jax.vmap(frame_inputs)):
+    the ops it runs do not grow with F. inv_view_projs is (F, 4, 4).
+    Returns (ccand (F*tiles, kc) int32, ccount (F*tiles,) int32, centry
+    (F*tiles, kc) f32, frus (F*tiles, pack) f32), frame-major: frame f's
+    rows are f*tiles .. (f+1)*tiles - 1, bit for bit frame_inputs'."""
+    pw, _ = tiled.padded_size(cfg.width, cfg.height)
+    ivps = torch.as_tensor(inv_view_projs, dtype=torch.float32,
+                           device=scene.device)
+    if ivps.dim() != 3 or ivps.shape[1:] != (4, 4):
+        raise ValueError(f"inv_view_projs must be (F, 4, 4), not "
+                         f"{tuple(ivps.shape)}")
+    fi = tiled.build_frame_inputs(scene, ivps, cfg, need_rays=False)
+    frus = tiled.frustum_scalars(fi, raygen_ivp=ivps,
+                                 tx=pw // culling.TILE_W)
+    return tuple(x.flatten(0, 1)
+                 for x in (*cluster_lists(scene, fi, kc), frus))
 
 
 def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
                  kc: int):
     """One frame's launch inputs for in-kernel raygen: (ccand, ccount,
-    centry, frus)."""
-    pw, _ = tiled.padded_size(cfg.width, cfg.height)
+    centry, frus), frames_inputs of a batch of one."""
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
                           device=scene.device)
-    fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=False)
-    frus = tiled.frustum_scalars(fi, raygen_ivp=ivp,
-                                 tx=pw // culling.TILE_W)
-    return (*cluster_lists(scene, fi, kc), frus)
+    return frames_inputs(scene, ivp[None], cfg, kc)
 
 
 def ray_frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig):
@@ -909,13 +929,26 @@ def render_frame(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
                  "windows": windows}
 
 
+def frames_per_launch(cfg: RenderConfig, f_total: int) -> int:
+    """Frames per fused launch of an f_total-frame batch in render_frames:
+    as many as BATCH_TILE_CAP tile rows hold, lowered until they divide
+    f_total (equal chunks)."""
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    n_tiles = (pw // culling.TILE_W) * (ph // culling.TILE_H)
+    f = max(1, min(f_total, BATCH_TILE_CAP // n_tiles))
+    while f_total % f:
+        f -= 1
+    return f
+
+
 def render_frames(scene: DeviceScene, inv_view_projs,
                   cfg: RenderConfig) -> torch.Tensor:
     """Render a batch of frames, F = len(inv_view_projs). Fused frames
     with in-kernel raygen batch into as few launches as BATCH_TILE_CAP
     allows (equal chunks): every kernel input is per tile, so frames batch
-    by concatenating their tile rows. Windowed scenes (and ray-matrix
-    input) render frame by frame. Returns (F, H, W, 3) f32."""
+    by concatenating their tile rows, and each chunk's inputs are built in
+    one pass (frames_inputs). Windowed scenes (and ray-matrix input)
+    render frame by frame. Returns (F, H, W, 3) f32."""
     kc = clusters_per_window(scene, cfg)
     if not isinstance(inv_view_projs, torch.Tensor):
         inv_view_projs = torch.from_numpy(np.asarray(inv_view_projs))
@@ -924,16 +957,10 @@ def render_frames(scene: DeviceScene, inv_view_projs,
     if scene.num_clusters > kc or not cfg.kernel_raygen:
         return torch.stack([render_frame(scene, ivps[i], cfg)
                             for i in range(f_total)])
-    pw, ph = tiled.padded_size(cfg.width, cfg.height)
-    n_tiles = (pw // culling.TILE_W) * (ph // culling.TILE_H)
-    f = max(1, min(f_total, BATCH_TILE_CAP // n_tiles))
-    while f_total % f:
-        f -= 1
+    f = frames_per_launch(cfg, f_total)
     out = []
     for c0 in range(0, f_total, f):
-        per_frame = [frame_inputs(scene, ivps[i], cfg, kc)
-                     for i in range(c0, c0 + f)]
-        rows = [torch.cat(parts) for parts in zip(*per_frame)]
+        rows = frames_inputs(scene, ivps[c0:c0 + f], cfg, kc)
         out.append(_launch(scene, cfg, rows)[0])
     images = out[0] if len(out) == 1 else torch.cat(out)
     return images[:, :cfg.height, :cfg.width]

@@ -49,7 +49,10 @@ def padded_size(width: int, height: int) -> tuple[int, int]:
 
 
 class FrameInputs(NamedTuple):
-    """Per-frame inputs of the trace."""
+    """Per-frame inputs of the trace. Built for F frames in one pass
+    (build_frame_inputs of an (F, 4, 4) inv_view_proj), every field but
+    scene_aabb has a leading frame axis (apex (F, 3), normals (F, tiles,
+    4, 3), ...) and the ray and q_frame fields are None."""
 
     raymat: torch.Tensor | None   # (tiles, TILE, 8) rows [d, apex x d, s, 1]
     dirs: torch.Tensor | None     # (tiles, TILE, 3)
@@ -69,16 +72,9 @@ class FrameInputs(NamedTuple):
 
 
 def scene_exit_aabb(scene: DeviceScene) -> torch.Tensor:
-    """(6,) f32 [min xyz, max xyz]: the union of valid cluster AABBs,
-    inflated so that every hit the MT epilogue can ACCEPT (uv within
-    MT_UV_EPS outside a leaf, i.e. up to ~eps * extent outside the exact
-    geometry AABB) still lies inside. A ray's slab EXIT through this box
-    upper-bounds the apex-relative t of any hit it may still find."""
-    valid = scene.cluster_valid[:, None]
-    mn = torch.where(valid, scene.cluster_aabb_min, BIG).amin(dim=0)
-    mx = torch.where(valid, scene.cluster_aabb_max, -BIG).amax(dim=0)
-    pad = 2.0 * intersect.MT_UV_EPS * (mx - mn) + 1e-6
-    return torch.cat([mn - pad, mx + pad]).to(torch.float32)
+    """(6,) f32 inflated scene box [min xyz, max xyz]: the kernel's per-ray
+    reach bound (DeviceScene.exit_aabb, computed once per scene)."""
+    return scene.exit_aabb
 
 
 def unit_centers(scene: DeviceScene) -> torch.Tensor:
@@ -130,20 +126,29 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
     tiles only (a rank's share of a multi-device frame). Their frustums
     are cut before the cull, and rays are made only for the tile rows
     they span; every value equals the whole frame's at those tiles.
+
+    inv_view_proj (F, 4, 4) builds F frames in one pass, as the JAX
+    package's jax.vmap of it does (render_pallas_frames): every field
+    but scene_aabb gains a leading frame axis, each frame's values bit for
+    bit its own call's. Rays and q_frame are built for one frame only.
     """
     dev = scene.device
     width, height = cfg.width, cfg.height
     pw, ph = padded_size(width, height)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
     tile0, n_tiles = (0, tx * ty) if tiles is None else tiles
+    m = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
+    if m.dim() != 2 and (need_rays or need_q_frame):
+        raise ValueError("rays and q_frame are built for one frame: pass "
+                         f"one (4, 4) inv_view_proj, not {tuple(m.shape)}")
 
-    apex, normals = culling.tile_frustums(inv_view_proj, width, height,
-                                          pw, ph, device=dev)
-    sub_normals = culling.tile_sub_frustums(inv_view_proj, width, height,
-                                            pw, ph, n_sub=cfg.sub_frusta,
+    apex, normals = culling.tile_frustums(m, width, height, pw, ph,
+                                          device=dev)
+    sub_normals = culling.tile_sub_frustums(m, width, height, pw, ph,
+                                            n_sub=cfg.sub_frusta,
                                             n_rows=cfg.sub_rows, device=dev)
-    normals = normals[tile0:tile0 + n_tiles]
-    sub_normals = sub_normals[tile0:tile0 + n_tiles]
+    normals = normals.narrow(-3, tile0, n_tiles)
+    sub_normals = sub_normals.narrow(-4, tile0, n_tiles)
     cluster_hit = culling.cull_units(apex, normals, scene.cluster_aabb_min,
                                      scene.cluster_aabb_max,
                                      scene.cluster_valid)
@@ -154,7 +159,7 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
         ty0 = tile0 // tx
         n_ty = -(-(tile0 + n_tiles) // tx) - ty0
         origins, dirs = raygen.generate_rays(
-            inv_view_proj, width, height, pw, ph, device=dev,
+            m, width, height, pw, ph, device=dev,
             rows=(ty0 * culling.TILE_H, n_ty * culling.TILE_H))
         first = tile0 - ty0 * tx
 
@@ -179,7 +184,7 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
         q_frame = scene.unit_qn.clone()
         q_frame[:, 7, 3 * lpu:4 * lpu] = t_num
     return FrameInputs(raymat, dirs, apex, normals, cluster_hit,
-                       sub_normals, scene_exit_aabb(scene), q_frame, t_num)
+                       sub_normals, scene.exit_aabb, q_frame, t_num)
 
 
 def frustum_pack_len(n_sub: int, with_raygen: bool = False,
@@ -192,42 +197,55 @@ def frustum_pack_len(n_sub: int, with_raygen: bool = False,
                + 6 + (13 if with_xform else 0)) // 64) * 64
 
 
+@functools.lru_cache(maxsize=16)
+def _tile_origins(n_tiles: int, tx: int, device: torch.device):
+    """(n_tiles, 2) f32 pixel origins (px0, py0) of the flat tile index,
+    integer-valued and exact in float32. Shape-only, so built once per
+    tile grid and device (callers only read it)."""
+    tile = torch.arange(n_tiles, dtype=torch.int64, device=device)
+    return torch.stack([(tile % tx) * culling.TILE_W,
+                        (tile // tx) * culling.TILE_H],
+                       dim=1).to(torch.float32)
+
+
 def frustum_scalars(fi: FrameInputs, raygen_ivp=None,
                     tx: int | None = None) -> torch.Tensor:
     """(tiles, frustum_pack_len(...)) f32 per-tile scalar pack for the
     kernel: [apex xyz, n_sub sub-cones x 4 planes x xyz, then — for
     in-kernel raygen — the tile's pixel origin (px0, py0) and the 16
     inv-view-proj scalars, then the 6 inflated scene-AABB scalars
-    (fi.scene_aabb — the kernel's per-ray reach bound), pad]."""
-    n_tiles = fi.normals.shape[0]
-    n_sub = fi.sub_normals.shape[1]
+    (fi.scene_aabb — the kernel's per-ray reach bound), pad]. A batched
+    fi (leading frame axis F, raygen_ivp (F, 4, 4)) gives (F, tiles,
+    pack)."""
+    lead = fi.apex.shape[:-1]
+    n_tiles = fi.normals.shape[-3]
+    n_sub = fi.sub_normals.shape[-3]
     ns = n_sub * 12
     dev = fi.apex.device
-    apex = fi.apex.expand(n_tiles, 3)
-    parts = [apex, fi.sub_normals.reshape(n_tiles, ns)]
+    rows = (*lead, n_tiles)
+    parts = [fi.apex[..., None, :].expand(*rows, 3),
+             fi.sub_normals.reshape(*rows, ns)]
     used = 3 + ns
     if raygen_ivp is not None:
-        # Integer tile coordinates, exact in float32.
-        tile = torch.arange(n_tiles, dtype=torch.int64, device=dev)
-        px0 = ((tile % tx) * culling.TILE_W).to(torch.float32)
-        py0 = ((tile // tx) * culling.TILE_H).to(torch.float32)
         m16 = torch.as_tensor(raygen_ivp, dtype=torch.float32,
-                              device=dev).reshape(16).expand(n_tiles, 16)
-        parts += [px0[:, None], py0[:, None], m16]
+                              device=dev).reshape(*lead, 1, 16)
+        parts += [_tile_origins(n_tiles, tx, dev).expand(*rows, 2),
+                  m16.expand(*rows, 16)]
         used += 18
-    parts.append(fi.scene_aabb.expand(n_tiles, 6))
+    parts.append(fi.scene_aabb.expand(*rows, 6))
     used += 6
     pack = frustum_pack_len(n_sub, raygen_ivp is not None)
-    parts.append(torch.zeros((n_tiles, pack - used), dtype=torch.float32,
+    parts.append(torch.zeros((*rows, pack - used), dtype=torch.float32,
                              device=dev))
-    return torch.cat(parts, dim=1).contiguous()
+    return torch.cat(parts, dim=-1).contiguous()
 
 
 def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
                              kc: int):
     """Per-tile kc nearest remaining clusters + the cleared remaining set.
-    cl_dist is (C,), one apex for every tile, or (tiles, C), an apex per
-    row (merged instancing).
+    remaining is (..., tiles, C); cl_dist broadcasts against it: (C,), one
+    apex for every tile; (tiles, C), an apex per row (merged instancing);
+    (F, 1, C), an apex per frame of a batch.
 
     Selection is by (distance, cluster index) order, as jax.lax.top_k
     gives it (ties to the lower index): a stable ascending sort of the
@@ -235,42 +253,45 @@ def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
     compare against the last selected (distance, index) pair, O(tiles x
     C), not a (tiles, kc, C) membership tensor.
 
-    Returns (cidx (tiles, kc) int32, sel (tiles, kc) bool, ascending
-    distance skey (tiles, kc) f32 (+inf where not sel), new_remaining
-    (tiles, C) bool, next_bound (tiles,) f32).
+    Returns (cidx (..., tiles, kc) int32, sel (..., tiles, kc) bool,
+    ascending distance skey (..., tiles, kc) f32 (+inf where not sel),
+    new_remaining (..., tiles, C) bool, next_bound (..., tiles) f32).
     """
-    n_cl = remaining.shape[1]
+    n_cl = remaining.shape[-1]
     kc = min(kc, n_cl)
     idx = torch.arange(n_cl, device=cl_dist.device)
-    d = cl_dist if cl_dist.dim() == 2 else cl_dist[None, :]
-    keyed = torch.where(remaining, d, float("inf"))
-    skey, sidx = torch.sort(keyed, dim=1, stable=True)
-    skey, sidx = skey[:, :kc], sidx[:, :kc]
+    keyed = torch.where(remaining, cl_dist, float("inf"))
+    skey, sidx = torch.sort(keyed, dim=-1, stable=True)
+    skey, sidx = skey[..., :kc], sidx[..., :kc]
     sel = skey < float("inf")
     # Strictly after the kc-th selected pair in (dist, idx) order; when
     # fewer than kc survived, everything remaining was selected, so the
     # threshold is +inf (nothing stays).
-    kth_d = torch.where(sel[:, -1], skey[:, -1], float("inf"))[:, None]
-    kth_i = torch.where(sel[:, -1], sidx[:, -1], n_cl)[:, None]
-    new_remaining = remaining & ((d > kth_d)
-                                 | ((d == kth_d) & (idx[None, :] > kth_i)))
-    next_bound = torch.where(new_remaining, d, float("inf")).amin(dim=1)
+    kth_d = torch.where(sel[..., -1], skey[..., -1], float("inf"))[..., None]
+    kth_i = torch.where(sel[..., -1], sidx[..., -1], n_cl)[..., None]
+    new_remaining = remaining & ((cl_dist > kth_d)
+                                 | ((cl_dist == kth_d) & (idx > kth_i)))
+    next_bound = torch.where(new_remaining, cl_dist,
+                             float("inf")).amin(dim=-1)
     return (sidx.to(torch.int32), sel, skey, new_remaining, next_bound)
 
 
 def cluster_window(scene: DeviceScene, apex: torch.Tensor,
                    remaining: torch.Tensor, kc: int):
     """Cluster-level window: the kc nearest remaining clusters per tile,
-    front-to-back, for the kernel's in-kernel unit walk.
+    front-to-back, for the kernel's in-kernel unit walk. apex (3,) with
+    remaining (tiles, C), or apex (F, 3) with remaining (F, tiles, C) for
+    F frames in one pass (each frame's rows bit for bit its own call's).
 
-    Returns (ccand (tiles, kc) int32, ccount (tiles,) int32, centry
-    (tiles, kc) f32 ascending with +inf tail, new_remaining, next_bound
-    (tiles,))."""
-    cl_dist = culling.aabb_distance(apex, scene.cluster_aabb_min,
-                                    scene.cluster_aabb_max)          # (C,)
+    Returns (ccand (..., tiles, kc) int32, ccount (..., tiles) int32,
+    centry (..., tiles, kc) f32 ascending with +inf tail, new_remaining,
+    next_bound (..., tiles))."""
+    cl_dist = culling.aabb_distance(apex[..., None, :],
+                                    scene.cluster_aabb_min,
+                                    scene.cluster_aabb_max)   # (..., C)
     cidx, sel, skey, new_remaining, next_bound = _select_nearest_clusters(
-        cl_dist, remaining, kc)
-    return (cidx.contiguous(), sel.sum(dim=1).to(torch.int32),
+        cl_dist[..., None, :], remaining, kc)
+    return (cidx.contiguous(), sel.sum(dim=-1).to(torch.int32),
             skey.contiguous(), new_remaining, next_bound)
 
 

@@ -119,6 +119,39 @@ def test_render_frames_equals_frames(cuda):
                            tile_trace.render_frame(scene, ivps[k], cfg))
 
 
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_batched_prologue_on_card(cuda, compressed, monkeypatch):
+    """frames_inputs' rows bit-equal to per-frame frame_inputs' on the
+    card, and render_frames in two launch chunks (a 32-row cap: two
+    256x64 frames of 16 tiles each per launch) equal to render_frame, one
+    fused launch per chunk."""
+    mesh = procedural.make_icosphere(subdivisions=1, level=3, amplitude=0.1)
+    scene = scene_mod.build_device_scene(mesh, compressed=compressed,
+                                         device=cuda)
+    cfg = RenderConfig(width=256, height=64)
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    ivps = np.stack([_ivp(256, 64, yaw) for yaw in (10.0, 25.0, 40.0,
+                                                     200.0)])
+    got = tile_trace.frames_inputs(scene, ivps, cfg, kc)
+    want = [torch.cat(parts) for parts in zip(*(
+        tile_trace.frame_inputs(scene, ivp, cfg, kc) for ivp in ivps))]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    name = ("tile_trace_fused_compressed" if compressed
+            else "tile_trace_fused")
+    monkeypatch.setattr(tile_trace, "BATCH_TILE_CAP", 32)
+    before = tile_trace.LAUNCHES[name]
+    batch = tile_trace.render_frames(scene, ivps, cfg)
+    torch.cuda.synchronize()
+    assert tile_trace.LAUNCHES[name] == before + 2
+    for k in range(4):
+        assert torch.equal(batch[k],
+                           tile_trace.render_frame(scene, ivps[k], cfg))
+
 def test_wrapper_rejects_bad_input(cuda):
     scene = _scene(0, 2, cuda)
     cfg = RenderConfig(width=128, height=64)
