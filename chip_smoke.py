@@ -72,20 +72,33 @@ Phases (any failure raises and exits non-zero):
  14. bench config 5, the path tracer (a level-5 icosphere at 512x512,
      8 sub-cones, 3 bounces, 2 samples per pixel), counted: PathTracer.render
      for 2 frames and a 32-frame orbit frame by frame, one raw launch (K1d)
-     per frame and one grouped-trace launch (K2) per window of each bounce;
+     per frame, one grouped-trace launch (K2) per window of each bounce,
+     3 pt_spawn and 4 pt_shade launches per frame (csrc/path_shade.cu: the
+     draw and the next ray, the shading);
      K2 against its plain version on every launch of frame 0 (t, visits,
      gated sub-groups and tests equal, bounce 1's visits and gated held to
      their pins), each bounce's K2 ms beside the ms before the redesign;
+     pt_spawn's uniforms on all 524,288 lanes bit-equal to the plain draw
+     for bounces 0-2 and two seeds; pt_spawn and pt_shade against their
+     plain versions on every call of frame 0 (uniforms, origins, radiance
+     and normals bit for bit, directions within 2 ulp of 1), each launch's
+     device time (launches queued behind a spin kernel) beside its
+     wrapper's time per call, its plain version's and its bound; the
+     frame with the kernels against the frame with the plain versions
+     (bit for bit, or within config 5's gate; live counts equal) and the
+     stage ms of both;
      the reference's engine gate (bench.py:543-585: the pallas and grouped
      engines on one 256x256 frame, and the grouped engine once more with
      no candidate cut, to see whether the cut explains a live-count
      difference); the lane cuts against none, bit for bit; frame, orbit,
      stage times, K2's bound over its tests, and the grouped engine's
      trace of the same bounce;
- 15. config 5 compressed (K1d + K1c, K2 compressed): counted frames, K2
-     against its plain version on every launch of frame 0 as in phase 14,
-     the frame within the gate of phase 14's, the frame's stage times,
-     MiB of both scenes;
+ 15. config 5 compressed (K1d + K1c, K2 compressed, pt_spawn, pt_shade):
+     counted frames, K2 against its plain version on every launch of
+     frame 0 as in phase 14, pt_spawn / pt_shade against their plain
+     versions on every call of frame 0 and the frame against its plain
+     version as in phase 14, the frame within the gate of phase 14's, the
+     frame's stage times, MiB of both scenes;
  16. the per-ray reference backend (pipeline "ray") on config 3 at 1080p,
      the scene rebuilt with its hierarchy tables: frame ms (CUDA events
      over 2 calls of the default 8 candidates per ray), Mrays/s, peak
@@ -103,8 +116,9 @@ Phases (any failure raises and exits non-zero):
      torch.profiler trace of one 32-frame orbit with the device's busy
      share of the traced window;
  18. the path tracer's perray engine on config 5's scene with its
-     hierarchy at phase 14's 256x256 gate frame, against the pallas engine
-     (K1d, K2; counted) within bench.py:583-584's budgets; frame ms;
+     hierarchy at phase 14's 256x256 gate frame (pt_spawn, pt_shade;
+     counted), against the pallas engine (K1d, K2, pt_spawn, pt_shade;
+     counted) within bench.py:583-584's budgets; frame ms;
  19. the debug render on config 3 at 1080p (clean: passes; one NaN planted
      in leaf_verts: FloatingPointError), the scene cache (the second build
      a load, its tables and its K1a frame bit-equal to the first and to
@@ -131,8 +145,9 @@ Phases (any failure raises and exits non-zero):
      its verify against the XLA tile backend within budget, and each
      stage's launches as expected (one batched fused launch per orbit
      call); then its config 8 (two-level instanced, K1d) and config 5
-     (path-traced, K1d and K2) rows in this process with 4-frame orbits,
-     their launches counted from 0 and their verifies within budget.
+     (path-traced, K1d, K2, pt_spawn and pt_shade) rows in this process
+     with 4-frame orbits, their launches counted from 0 and their
+     verifies within budget.
 
 The last lines are the kernel table as JSON, the card as nvidia-smi
 reports it, and {"ok": true, "device": {...}}.
@@ -257,6 +272,35 @@ PT_SIZE, PT_BOUNCES, PT_SPP, PT_ORBIT, PT_VERIFY = 512, 3, 2, 32, 256
 # divisions 3; sign flips and entries that are 0 are not counted.
 K2_OPS_PER_RAY_LEAF = 5 + 11 + 11 + 6 + 11 + 1 + 4 + 4 + 1 + 1
 K2_DERIVE_OPS_PER_LEAF = 6 + 27 + 5 + 9 + 7 + 3
+# Least-time counts of pt_spawn / pt_shade (csrc/path_shade.cu), per
+# lane. The draw: four Threefry-2x32 blocks of 79 32-bit operations (2
+# xors for the third key word, 2 adds, 20 rounds of add / rotate / xor, 5
+# key injections of 3 adds), g // total and g % total, and the uniforms'
+# xor, shift and or (2 x 3): 324. The direction around the normal: the
+# radius, angle, cos, sin and height (9), the basis switch (2), two cross
+# products (18), the norm (7) and its 3 divisions, the 3 x 5 sum and the
+# uniforms' 2 subtractions: 56 float32 operations. Both only on the lanes
+# that spawn (hits). Per lane of a bounce: the hit select, the new origin
+# (3 x 4) and the direction select (3): 16; of the primary form: the
+# direction select, 3. pt_shade: the normal's norm, division and flip
+# toward the ray (19) per lane, plus 18 for the radiance's two selected
+# products and adds on a bounce (3 for the primary form's select), and the
+# four lights (4 x 15) and Reinhard (6) on each hit.
+PT_DRAW_INT_OPS = 4 * 79 + 2 + 6
+PT_DIR_FP_OPS = 9 + 2 + 18 + 7 + 3 + 15 + 2
+PT_SPAWN_FP_LANE, PT_SPAWN_FP_LANE0 = 16, 3
+PT_DIRECT_FP_OPS = 4 * 15 + 6
+PT_SHADE_FP_LANE, PT_SHADE_FP_LANE0 = 19 + 18, 19 + 3
+# 32-bit integer operations per second of an H100 SXM: 64 INT32 lanes per
+# SM per clock x 132 SMs x 1.98 GHz (the published peaks list no integer
+# rate outside the tensor cores).
+PEAK_INT32 = 64 * 132 * 1.98e9
+# GPU clock cycles of the spin kernel that _queued_ms queues its timed
+# launches behind (~10 ms at 1.98 GHz; the host queues 20 wrapper calls
+# in ~1 ms).
+SPIN_CYCLES = 20_000_000
+# Seeds of pt_spawn's all-lane draw check.
+PT_DRAW_SEEDS = (0, 2**31 - 1)
 # K2 unit visits the plain version may walk in one comparison (~2 ms per
 # visit on the card); above it the comparison takes CHECK_TILES groups.
 PLAIN_VISITS_K2 = 12000
@@ -380,9 +424,10 @@ def _expect_launches(what: str, expected: dict) -> dict:
     """The launch counts since the last reset; exactly the kernels of
     `expected` must have launched, each as often as given (None: at least
     once)."""
-    from rtmm_tpu_torch.ops import group_trace, tile_trace
+    from rtmm_tpu_torch.ops import group_trace, path_shade, tile_trace
     got = {k: n for k, n in (*tile_trace.LAUNCHES.items(),
-                             *group_trace.LAUNCHES.items()) if n}
+                             *group_trace.LAUNCHES.items(),
+                             *path_shade.LAUNCHES.items()) if n}
     wrong = set(got) != set(expected) or any(
         n is not None and got[k] != n for k, n in expected.items())
     _log(f"[{what}] launches {got}")
@@ -578,6 +623,29 @@ def _profiled(fn) -> dict:
         with stats.profiler_trace(logdir):
             fn()
         return stats.device_busy(logdir)
+
+
+def _queued_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time per call of fn, for kernels shorter than their
+    wrapper's host work: each round queues `reps` calls behind a spin
+    kernel of ~10 ms, so the card runs them back to back, and CUDA events
+    time them; median of the rounds. Raises if the spin ended before the
+    host had queued every call."""
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        if start.query():
+            raise RuntimeError("the card reached the timed calls before "
+                               "the host had queued them")
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
 
 
 def _batched_prologue(card, name, scene, cfg, ivps, kernel) -> dict:
@@ -1511,9 +1579,10 @@ def _k2_recording(rec: dict, launches: bool):
 
 
 def _reset_all():
-    from rtmm_tpu_torch.ops import group_trace, tile_trace
+    from rtmm_tpu_torch.ops import group_trace, path_shade, tile_trace
     tile_trace.reset_launches()
     group_trace.reset_launches()
+    path_shade.reset_launches()
 
 
 def _k2_check(card, name, launch, derive):
@@ -1633,9 +1702,10 @@ def _k2_entry(name, launches, checks, **extra):
 
 def _pt_frames(tracer, ivps, name, kernels):
     """The counted main path of a path-traced configuration: frames
-    through PathTracer.render, launches held to one raw launch per frame
-    and one K2 launch per window iteration. Returns the (image, stats)
-    pairs and the K2 launches."""
+    through PathTracer.render, launches held to one raw launch per frame,
+    one K2 launch per window iteration and PT_BOUNCES pt_spawn and
+    PT_BOUNCES + 1 pt_shade launches per frame. Returns the (image,
+    stats) pairs and the launches by kernel."""
     _reset_all()
     rec = {}
     with _k2_recording(rec, launches=False):
@@ -1643,7 +1713,9 @@ def _pt_frames(tracer, ivps, name, kernels):
     torch.cuda.synchronize()
     raw, k2 = kernels
     got = _expect_launches(f"{name} main path",
-                           {raw: len(ivps), k2: rec["windows"]})
+                           {raw: len(ivps), k2: rec["windows"],
+                            "pt_spawn": len(ivps) * PT_BOUNCES,
+                            "pt_shade": len(ivps) * (PT_BOUNCES + 1)})
     for img, st in out:
         live = st["live_rays_per_bounce"]
         if not (bool(torch.isfinite(img).all())
@@ -1653,9 +1725,11 @@ def _pt_frames(tracer, ivps, name, kernels):
                                f"not monotone: {live.tolist()}")
     _log(f"[{name} main path] {len(ivps)} frames: {got[raw]} raw launches, "
          f"{got[k2]} K2 launches = {rec['windows']} window iterations over "
-         f"{len(rec['traces'])} bounce traces; frames finite, live counts "
+         f"{len(rec['traces'])} bounce traces, {got['pt_spawn']} pt_spawn "
+         f"and {got['pt_shade']} pt_shade launches ({PT_BOUNCES} and "
+         f"{PT_BOUNCES + 1} per frame); frames finite, live counts "
          f"monotone")
-    return out, got[k2]
+    return out, got
 
 
 def _frame_stages(tracer, ivp) -> dict:
@@ -1672,6 +1746,250 @@ def _pt_gate(a, b) -> dict:
     """bench.py's config-5 gate between two frames (bench.py:583-584)."""
     from rtmm_tpu_torch.utils.gate import image_gate
     return image_gate(a, b, per=500, big_per=500)
+
+
+@contextlib.contextmanager
+def _pt_recording(rec: dict):
+    """While active: record each path_shade.spawn / shade call of the path
+    tracer (rec["spawn"], rec["shade"]: lists of (args, kwargs))."""
+    from rtmm_tpu_torch.ops import path_shade
+    orig = path_shade.spawn, path_shade.shade
+
+    def spawn(*args, **kwargs):
+        rec.setdefault("spawn", []).append((args, kwargs))
+        return orig[0](*args, **kwargs)
+
+    def shade(*args, **kwargs):
+        rec.setdefault("shade", []).append((args, kwargs))
+        return orig[1](*args, **kwargs)
+
+    path_shade.spawn, path_shade.shade = spawn, shade
+    try:
+        yield rec
+    finally:
+        path_shade.spawn, path_shade.shade = orig
+
+
+@contextlib.contextmanager
+def _pt_plain():
+    """While active, the path tracer's spawn and shade run their plain
+    versions on the card's tensors: the frame as it was before pt_spawn
+    and pt_shade."""
+    from rtmm_tpu_torch.ops import path_shade
+    orig = path_shade.spawn, path_shade.shade
+    path_shade.spawn, path_shade.shade = (path_shade.spawn_plain,
+                                          path_shade.shade_plain)
+    try:
+        yield
+    finally:
+        path_shade.spawn, path_shade.shade = orig
+
+
+def _pt_bound(kind: str, args, kwargs) -> tuple[float, str, str]:
+    """Least time of one pt_spawn / pt_shade launch on these inputs: its
+    bytes (each input read once, each output written once) over the HBM
+    rate, or its operations over their peak rates (32-bit integer and
+    float32 units work side by side, so the larger of the two), whichever
+    is larger. Only the bytes an output depends on count: the draw's idx
+    and t, and a primary's normal, on the drawn lanes; a primary's
+    direction on the pixels it misses; alive on the lanes that miss.
+    Returns (ms, "bytes" or "operations", how it was counted)."""
+    if kind == "spawn":
+        hit, o = args[4], args[5]
+        n, hits = o.shape[0], int(hit.sum())
+        if kwargs.get("t") is None:
+            lanes = kwargs["lanes"]
+            draws = hits * (lanes // args[2])
+            per_lane = PT_SPAWN_FP_LANE0
+            # o and hit of every pixel, nrm of the hits, d of the misses.
+            nbytes = n * 13 + hits * 12 + (n - hits) * 12
+        else:
+            lanes, draws, per_lane = n, hits, PT_SPAWN_FP_LANE
+            # o, d, nrm and hit of every lane, idx and t of the drawn ones.
+            nbytes = n * 37 + draws * 8
+        nbytes += lanes * 24                            # o_out, d_out
+        int_ops = draws * PT_DRAW_INT_OPS
+        fp_ops = draws * PT_DIR_FP_OPS + lanes * per_lane
+        what = (f"{draws} draws x ({PT_DRAW_INT_OPS} int32 + {PT_DIR_FP_OPS} "
+                f"fp32) + {lanes} lanes x {per_lane} fp32")
+    else:
+        hit = args[2]
+        lanes, hits = args[0].shape[0], int(hit.sum())
+        bounce = kwargs.get("rad") is not None
+        per_lane = PT_SHADE_FP_LANE if bounce else PT_SHADE_FP_LANE0
+        # bn, d and hit in, rad and nrm out; a bounce's rad in and alive of
+        # the lanes that miss.
+        nbytes = lanes * 49 + (lanes * 12 + lanes - hits if bounce else 0)
+        int_ops = 0
+        fp_ops = hits * PT_DIRECT_FP_OPS + lanes * per_lane
+        what = (f"{hits} hits x {PT_DIRECT_FP_OPS} + {lanes} lanes x "
+                f"{per_lane} fp32")
+    ops_ms = max(int_ops / PEAK_INT32, fp_ops / PEAK_FP32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return (max(ops_ms, bytes_ms), by,
+            f"{what} = {ops_ms:.6f} ms; {nbytes / 1e6:.3f} MB = "
+            f"{bytes_ms:.6f} ms")
+
+
+def _pt_draw_check(card, total: int, lanes: int, dev) -> dict:
+    """pt_spawn's uniforms on every lane (the primary form, all lanes
+    drawn) against the plain draw on the card, bit for bit, for bounces
+    0-2 and two seeds."""
+    from rtmm_tpu_torch.ops import path_shade
+    from rtmm_tpu_torch.utils import threefry
+    zeros3 = torch.zeros((total, 3), device=dev)
+    nohit = torch.zeros(total, dtype=torch.bool, device=dev)
+    g = torch.arange(lanes, dtype=torch.int32, device=dev)
+    bad = 0
+    for seed in PT_DRAW_SEEDS:
+        for bounce in range(3):
+            u = path_shade.spawn(seed, bounce, total, zeros3, nohit, zeros3,
+                                 zeros3, lanes=lanes, with_u=True)[2]
+            p = path_shade.rand2(threefry.key(seed, dev), bounce, g, total)
+            bad += int((u.view(torch.int32) != p.view(torch.int32)).sum())
+    _log(f"[pt_spawn draw] {card}: the uniforms of all {lanes} lanes "
+         f"(total {total}) for bounces 0-2 and seeds {PT_DRAW_SEEDS} against "
+         f"the plain draw (int64 threefry) on the card: {bad} words differ")
+    if bad:
+        raise RuntimeError("pt_spawn's draw differs from jax.random's")
+    return {"lanes": lanes, "seeds": list(PT_DRAW_SEEDS), "bounces": 3,
+            "words_differ": bad}
+
+
+def _ulp1_diff(a, b) -> float:
+    """max |a - b| in ulp of 1."""
+    return float((a - b).abs().max()) / float(np.finfo(np.float32).eps)
+
+
+def _pt_checks(card, name, rec) -> dict:
+    """pt_spawn and pt_shade against their plain versions on every call
+    of one recorded frame: uniforms, origins, radiance and normals bit
+    for bit, directions bit for bit or within 2 ulp of 1 (cos / sin);
+    each launch's device time beside its wrapper's time per call (host
+    work included), its plain version's and its bound."""
+    from rtmm_tpu_torch.ops import path_shade
+    res = {}
+    for kind in ("spawn", "shade"):
+        rows = []
+        for call, (args, kwargs) in enumerate(rec[kind]):
+            form = ("primary" if (kwargs.get("t") is None if kind == "spawn"
+                                  else kwargs.get("rad") is None)
+                    else "bounce")
+            if kind == "spawn":
+                k = path_shade.spawn(*args, **kwargs)
+                ku = path_shade.spawn(*args, **kwargs, with_u=True)
+                p = path_shade.spawn_plain(*args, **kwargs, with_u=True)
+                exact = (torch.equal(k[0], p[0]) and torch.equal(ku[0], p[0])
+                         and torch.equal(ku[1], k[1])
+                         and torch.equal(ku[2].view(torch.int32),
+                                         p[2].view(torch.int32)))
+                ndiff = int((k[1] != p[1]).any(-1).sum())
+                err = _ulp1_diff(k[1], p[1])
+                ok = exact and err <= 2.0
+                outs = k
+
+                def kernel_once(args=args, kwargs=kwargs):
+                    path_shade.spawn(*args, **kwargs)
+
+                def plain_once(args=args, kwargs=kwargs):
+                    path_shade.spawn_plain(*args, **kwargs)
+                detail = (f"uniforms and origins bit-equal {exact}; "
+                          f"directions differ on {ndiff} lanes, max "
+                          f"{err:.1f} ulp of 1")
+            else:
+                k = path_shade.shade(*args, **kwargs)
+                p = path_shade.shade_plain(*args, **kwargs)
+                ok = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                err = max(_ulp1_diff(k[0], p[0]), _ulp1_diff(k[1], p[1]))
+                outs = k
+
+                def kernel_once(args=args, kwargs=kwargs):
+                    path_shade.shade(*args, **kwargs)
+
+                def plain_once(args=args, kwargs=kwargs):
+                    path_shade.shade_plain(*args, **kwargs)
+                detail = f"radiance and normals bit-equal {ok}"
+            torch.cuda.synchronize()
+            ms = _queued_ms(kernel_once)
+            wrapper_ms = _events_ms(kernel_once, reps=20)
+            plain_ms = _events_ms(plain_once, reps=3)
+            bound, by, how = _pt_bound(kind, args, kwargs)
+            lanes = outs[0].shape[0]
+            _log(f"[{name} pt_{kind} {call} ({form})] {card}: {lanes} lanes, "
+                 f"{detail}; kernel {ms:.6f} ms on the device (20 launches "
+                 f"queued behind a spin), wrapper {wrapper_ms:.4f} ms per "
+                 f"call (20 calls back to back), plain {plain_ms:.4f} ms; "
+                 f"bound {bound:.6f} ms ({by}: {how}), kernel at "
+                 f"{bound / ms:.3f} of it")
+            if not ok:
+                raise RuntimeError(f"{name}: pt_{kind} call {call} disagrees "
+                                   "with its plain version")
+            rows.append(dict(form=form, lanes=lanes, err_ulp=err, ms=ms,
+                             wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                             bound=(bound, by)))
+        res[kind] = rows
+    return res
+
+
+def _pt_entry(kind: str, launches: int, checks: dict, **extra) -> dict:
+    """The kernel-table entry of pt_spawn / pt_shade: the device ms,
+    wrapper ms, plain ms and bound of frame 0's first bounce launch (the
+    primary form's beside them), the launches of the main path, the
+    largest difference in ulp of 1 (directions only: the rest is
+    bit-equal)."""
+    rows = checks[kind]
+    first = next(r for r in rows if r["form"] == "bounce")
+    entry = {"name": f"pt_{kind}", "route": "cuda",
+             "source": "rtmm_tpu_torch/csrc/path_shade.cu",
+             "replaces": ("rtmm_tpu/render/pathtrace.py:342 (rand2) and "
+                          ":481-487 (next ray), XLA-fused"
+                          if kind == "spawn" else
+                          "rtmm_tpu/render/pathtrace.py:472-477 and "
+                          ":265-267 (shading), XLA-fused"),
+             "launches": launches,
+             "max_abs_err": max(r["err_ulp"] for r in rows)
+             * float(np.finfo(np.float32).eps),
+             "ms": first["ms"], "wrapper_ms": first["wrapper_ms"],
+             "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+             "bound_by": first["bound"][1],
+             "library_ms": None,
+             "library": "none: torch.rand is Philox, not jax.random's "
+                        "threefry" if kind == "spawn" else "none",
+             "per_launch": rows}
+    entry.update(extra)
+    return entry
+
+
+def _pt_kernel_frame(card, name, tracer, ivp, img0, st0) -> dict:
+    """The frame with pt_spawn / pt_shade against the same frame with
+    their plain versions on the card (bit for bit, or within config 5's
+    gate where cos / sin differ; live counts equal), and the stage ms of
+    both."""
+    with _pt_plain():
+        img_p, st_p = tracer.render(ivp)
+        torch.cuda.synchronize()
+        stages_plain = _frame_stages(tracer, ivp)
+    same = torch.equal(img_p, img0)
+    gate = _pt_gate(img0, img_p)
+    live_eq = torch.equal(st_p["live_rays_per_bounce"],
+                          st0["live_rays_per_bounce"])
+    stages = _frame_stages(tracer, ivp)
+    before = stages_plain.get("spawn", 0.0) + stages_plain.get("shading", 0.0)
+    after = stages.get("spawn", 0.0) + stages.get("shading", 0.0)
+    _log(f"[{name} pt kernels vs plain frame] {card}: frame bit-equal "
+         f"{same}; gate {gate}; live counts equal {live_eq}; spawn + "
+         f"shading stages {before:.4f} ms plain -> {after:.4f} ms kernels; "
+         "stages plain: " + "; ".join(f"{k} {v:.4f} ms"
+                                      for k, v in stages_plain.items())
+         + "; stages kernels: " + "; ".join(f"{k} {v:.4f} ms"
+                                           for k, v in stages.items()))
+    if not (gate["ok"] and live_eq):
+        raise RuntimeError(f"{name}: the frame with pt_spawn / pt_shade "
+                           f"differs from the plain one: {gate}")
+    return dict(bit_equal=same, gate=gate, stages_plain_ms=stages_plain,
+                stages_ms=stages, spawn_shading_plain_ms=before,
+                spawn_shading_ms=after)
 
 
 def phase_config5(card):
@@ -1698,8 +2016,9 @@ def phase_config5(card):
     ivps = [_camera(25.0 + 360.0 / PT_ORBIT * k, cfg) for k in range(PT_ORBIT)]
 
     # -- main path, counted ------------------------------------------------
-    out, k2_launches = _pt_frames(tracer, [ivp, ivp] + ivps, "config 5",
-                                  ("tile_trace_raw", "group_trace"))
+    out, got = _pt_frames(tracer, [ivp, ivp] + ivps, "config 5",
+                          ("tile_trace_raw", "group_trace"))
+    k2_launches = got["group_trace"]
     img0, st0 = out[0]
     if not (torch.equal(out[1][0], img0) and torch.equal(out[2][0], img0)):
         raise RuntimeError("config 5: frame 0 is not deterministic")
@@ -1715,8 +2034,8 @@ def phase_config5(card):
          f"frame (bench.py:701-708): frame 0 {rays0:.0f}, orbit {rays_orbit:.0f}")
 
     # -- K2 against its plain version on every launch of frame 0 -----------
-    rec = {}
-    with _k2_recording(rec, launches=True):
+    rec, prec = {}, {}
+    with _k2_recording(rec, launches=True), _pt_recording(prec):
         img_r, _ = tracer.render(ivp)
     torch.cuda.synchronize()
     if not torch.equal(img_r, img0):
@@ -1724,6 +2043,17 @@ def phase_config5(card):
     checks, k2_per_bounce = _k2_frame0(card, "config 5", rec["launches"],
                                        False)
     first = checks[0]
+
+    # -- pt_spawn / pt_shade against their plain versions -------------------
+    total = PT_SIZE * PT_SIZE
+    draw = _pt_draw_check(card, total, PT_SPP * total, scene.device)
+    pt_checks = _pt_checks(card, "config 5", prec)
+    pt_frame = _pt_kernel_frame(card, "config 5", tracer, ivp, img0, st0)
+    pt_entries = [_pt_entry(kind, got[f"pt_{kind}"], pt_checks,
+                            launches_per_frame=PT_BOUNCES + (kind == "shade"),
+                            frame=pt_frame, **({"draw": draw}
+                                               if kind == "spawn" else {}))
+                  for kind in ("spawn", "shade")]
 
     # -- the reference's engine gate (bench.py:543-585) ------------------
     cfgv = dataclasses.replace(cfg, width=PT_VERIFY, height=PT_VERIFY)
@@ -1820,12 +2150,15 @@ def phase_config5(card):
         k2_ms_per_bounce=k2_per_bounce,
         grouped_engine_bounce1_ms=grouped_ms, stages_ms=stages,
         verify=gate)
-    return entry, img0, scene.device_bytes(), mesh, cfg, pt, ivp
+    return (entry, img0, scene.device_bytes(), mesh, cfg, pt, ivp,
+            pt_entries)
 
 
-def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
+def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5,
+                             pt_entries):
     """Config 5 over a compressed scene (RTMM_PT_COMPRESSED=1,
-    bench.py:152-156): K1d + K1c primaries, K2 compressed bounces."""
+    bench.py:152-156): K1d + K1c primaries, K2 compressed bounces,
+    pt_spawn / pt_shade (their checks added to pt_entries)."""
     from rtmm_tpu_torch.models import scene as scene_mod
     from rtmm_tpu_torch.render import pathtrace
 
@@ -1835,22 +2168,35 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5):
     _log(f"[config 5 compressed] U = {scene.num_units} units, indexed "
          f"{scene.indexed}: {scene.device_bytes() / 2**20:.2f} MiB on the card "
          f"against {bytes5 / 2**20:.2f} MiB precomputed")
-    out, k2_launches = _pt_frames(
+    out, got = _pt_frames(
         tracer, [ivp, ivp], "config 5 compressed",
         ("tile_trace_raw_compressed", "group_trace_compressed"))
+    k2_launches = got["group_trace_compressed"]
     img, st = out[0]
     gate = _pt_gate(img, img5)
     _log(f"[config 5 compressed] frame vs the precomputed scene's: {gate}; "
          f"live {st['live_rays_per_bounce'].tolist()}")
     if not gate["ok"]:
         raise RuntimeError(f"config 5 compressed fails the gate: {gate}")
-    rec = {}
-    with _k2_recording(rec, launches=True):
-        tracer.render(ivp)
+    rec, prec = {}, {}
+    with _k2_recording(rec, launches=True), _pt_recording(prec):
+        img_r, _ = tracer.render(ivp)
     torch.cuda.synchronize()
+    if not torch.equal(img_r, img):
+        raise RuntimeError("config 5 compressed: recorded frame differs")
     checks, k2_per_bounce = _k2_frame0(card, "config 5 compressed",
                                        rec["launches"], True)
     first = checks[0]
+    pt_checks = _pt_checks(card, "config 5 compressed", prec)
+    pt_frame = _pt_kernel_frame(card, "config 5 compressed", tracer, ivp,
+                                img, st)
+    for e in pt_entries:
+        kind = e["name"][3:]
+        e["config5_compressed"] = {
+            "launches": got[e["name"]],
+            "max_abs_err": max(r["err_ulp"] for r in pt_checks[kind])
+            * float(np.finfo(np.float32).eps),
+            "per_launch": pt_checks[kind], "frame": pt_frame}
 
     def frame_once():
         tracer.render(ivp)
@@ -2053,12 +2399,15 @@ def phase_perray_engine(card, mesh5):
     perray = pathtrace.PathTracer(scene, cfg, pt)
     _reset_all()
     (a, sa), ms = _timed(lambda: perray.render(ivp))
-    _expect_launches("perray engine", {})
+    _expect_launches("perray engine", {"pt_spawn": PT_BOUNCES,
+                                       "pt_shade": PT_BOUNCES + 1})
     b, sb = pathtrace.PathTracer(scene, cfg, dataclasses.replace(
         pt, engine="pallas")).render(ivp)
     torch.cuda.synchronize()
     _expect_launches("pallas engine", {"tile_trace_raw": 1,
-                                       "group_trace": None})
+                                       "group_trace": None,
+                                       "pt_spawn": 2 * PT_BOUNCES,
+                                       "pt_shade": 2 * (PT_BOUNCES + 1)})
     gate = _pt_gate(a, b)
     dlive = float((sa["live_rays_per_bounce"]
                    - sb["live_rays_per_bounce"]).abs().max())
@@ -2444,7 +2793,8 @@ def phase_bench():
                                f"{launches.get(stage)}, expected {want}")
     for n, kind, kernels in ((8, "instanced", ("tile_trace_raw",)),
                              (5, "pathtrace", ("tile_trace_raw",
-                                               "group_trace"))):
+                                               "group_trace", "pt_spawn",
+                                               "pt_shade"))):
         t0 = time.perf_counter()
         _reset_all()
         stages = bench._Stages("cuda")
@@ -2685,10 +3035,12 @@ def main() -> int:
         "orbit_ms_per_frame", "covered_frac_1080p", "max_abs_err")}
     phase_raw_raymat(card, scene, ivp, cfg)
     # -- 14-15. the path tracer: K1d primaries, K2 bounces -------------------
-    entry5, img5, bytes5, mesh5, cfg5, pt5, ivp5 = phase_config5(card)
+    (entry5, img5, bytes5, mesh5, cfg5, pt5, ivp5,
+     pt_entries) = phase_config5(card)
     kernels.append(entry5)
     kernels.append(phase_config5_compressed(card, mesh5, cfg5, pt5, ivp5,
-                                            img5, bytes5))
+                                            img5, bytes5, pt_entries))
+    kernels.extend(pt_entries)
     # -- 16-19. per-ray backend, stats, perray engine, debug and cache -------
     t0 = time.perf_counter()
     scene_h = phase_perray(card, mesh, img_main, ivp, cfg)

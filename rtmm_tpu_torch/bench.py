@@ -79,7 +79,7 @@ import torch
 from .config import RenderConfig
 from .io import loader
 from .models import procedural, scene as scene_mod
-from .ops import group_trace, tile_trace
+from .ops import group_trace, path_shade, tile_trace
 from .render import instances as inst_mod
 from .render.pathtrace import PathTraceConfig, PathTracer
 from .render.renderer import _quantize, render_image
@@ -484,8 +484,8 @@ def _verify_pathtrace(scene, cfg: RenderConfig) -> dict:
 
 
 def _launches() -> dict:
-    return {k: v for k, v in {**tile_trace.LAUNCHES,
-                              **group_trace.LAUNCHES}.items() if v}
+    return {k: v for k, v in {**tile_trace.LAUNCHES, **group_trace.LAUNCHES,
+                              **path_shade.LAUNCHES}.items() if v}
 
 
 class _Stages:
@@ -628,6 +628,7 @@ def main(argv=None) -> int:
              "(no number of this row is a device metric)")
     tile_trace.reset_launches()
     group_trace.reset_launches()
+    path_shade.reset_launches()
     stages = _Stages(args.device)
     code = 0
     try:

@@ -21,7 +21,10 @@ traversal to a Monte-Carlo path tracer:
   * all samples ride one merged pipeline of spp x rays lanes; after a
     bounce's sort the state is cut to a per-bounce lane cap when the live
     rays fit it (the cut-off tail is dead and its radiance final), so
-    later bounces pay for the live rays, not the buffer.
+    later bounces pay for the live rays, not the buffer;
+  * per lane, the shading and the draw with the next ray are one kernel
+    each on a CUDA scene (ops/path_shade.py, csrc/path_shade.cu: pt_shade,
+    pt_spawn), in every engine; their plain versions on a CPU scene.
 
 Secondary engines: "pallas" = the grouped trace kernel (ops/group_trace.py,
 csrc/group_trace.cu; its plain version on CPU tensors) with the tile
@@ -46,9 +49,8 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from ..ops import (_f32, culling, group_trace, grouped, raygen, shading,
+from ..ops import (_f32, culling, group_trace, grouped, path_shade, raygen,
                    tile_trace, tiled, traversal)
-from ..utils import threefry
 
 BIG = 1e30
 GROUP = grouped.GROUP
@@ -68,42 +70,6 @@ class PathTraceConfig:
     # t_max-sized to scene-sized.
     bounce_t_max: float | None = None
     engine: str = "auto"
-
-
-def _direct_light(normal: torch.Tensor, albedo: torch.Tensor,
-                  cfg: RenderConfig) -> torch.Tensor:
-    """Diffuse direct lighting from the four reference lights
-    (closesthit.hlsl:70-81), Lambertian only, Reinhard tone-mapped."""
-    lo = torch.zeros(normal.shape[:-1] + (3,), dtype=torch.float32,
-                     device=normal.device)
-    for ldir, lscale in zip(shading.LIGHT_DIRS, shading.LIGHT_SCALE):
-        n_dot_l = torch.clamp_min(normal[..., 0] * ldir[0]
-                                  + normal[..., 1] * ldir[1]
-                                  + normal[..., 2] * ldir[2], 0.0)
-        radiance = cfg.light_intensity * lscale
-        lo = lo + albedo * (radiance / np.pi) * n_dot_l[..., None]
-    return lo / (lo + 1.0)
-
-
-def _cosine_dir(u: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
-    """Cosine-weighted hemisphere direction around `normal` from uniform
-    u (..., 2)."""
-    r = torch.sqrt(u[..., 0])
-    phi = (2.0 * np.pi) * u[..., 1]
-    x = r * torch.cos(phi)
-    y = r * torch.sin(phi)
-    z = torch.sqrt(torch.clamp_min(1.0 - u[..., 0], 0.0))
-    # Orthonormal basis around the normal.
-    up = torch.where((torch.abs(normal[..., 2:3]) < 0.9),
-                     shading._vec3((0.0, 0.0, 1.0), normal),
-                     shading._vec3((1.0, 0.0, 0.0), normal))
-    t = culling._cross(up, normal)
-    t = t / torch.clamp_min(torch.sqrt(t[..., 0] * t[..., 0]
-                                       + t[..., 1] * t[..., 1]
-                                       + t[..., 2] * t[..., 2]),
-                            1e-20)[..., None]
-    b = culling._cross(normal, t)
-    return x[..., None] * t + y[..., None] * b + z[..., None] * normal
 
 
 def _cap_schedule(mtotal: int, engine: str, n_bounce: int) -> list[int]:
@@ -132,17 +98,6 @@ def _cap_schedule(mtotal: int, engine: str, n_bounce: int) -> list[int]:
         caps = [max(c1 // (4 ** b), 4 * GROUP) for b in range(n_bounce)]
     caps = [(c + GROUP - 1) // GROUP * GROUP if c > 0 else 0 for c in caps]
     return [c if 0 < c < mtotal else 0 for c in caps]
-
-
-def _normalize_flip(bn: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """Normalise an (unnormalised, reference-style) geometric normal and
-    flip it toward the incoming ray."""
-    nn = torch.sqrt(bn[:, 0] * bn[:, 0] + bn[:, 1] * bn[:, 1]
-                    + bn[:, 2] * bn[:, 2])
-    nrm = bn / torch.clamp_min(nn, 1e-20)[:, None]
-    facing = (nrm[:, 0] * dirs[:, 0] + nrm[:, 1] * dirs[:, 1]
-              + nrm[:, 2] * dirs[:, 2]) > 0.0
-    return torch.where(facing[:, None], -nrm, nrm)
 
 
 def _resolve_engine(scene: DeviceScene, engine: str) -> str:
@@ -229,14 +184,10 @@ def _trace_primary(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     return torch.where(hit, t, cfg.t_max), hit, bn
 
 
-def _rand2(key0, bounce: int, lanes: torch.Tensor, total: int):
-    """(n, 2) randoms of bounce `bounce` for global lanes g = sample *
-    total + pixel: uniform(fold_in(fold_in(fold_in(key0, bounce),
-    g // total), g % total), (2,))."""
-    kb = threefry.fold_in(key0, bounce)
-    g = lanes.to(torch.int64)
-    k = threefry.fold_in(threefry.fold_in(kb, g // total), g % total)
-    return threefry.uniform2(k)
+# The plain draw and cosine direction, under the names the port's tests
+# hold against jax.random and the JAX package.
+_rand2 = path_shade.rand2
+_cosine_dir = path_shade.cosine_dir
 
 
 def _sort_state(scene: DeviceScene, o, d, alive, rad, idx, engine: str):
@@ -309,7 +260,8 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
 
     timings (a dict, CUDA scenes only): CUDA-event spans of the stages —
     "primary", "sort b", "trace b" (the engine's secondary trace of bounce
-    b, its window loop included), "randoms", "shading"."""
+    b, its window loop included), "spawn" (the draws and the next rays,
+    path_shade.spawn), "shading" (path_shade.shade)."""
     height, width = cfg.height, cfg.width
     engine = _resolve_engine(scene, pt.engine)
     dev = scene.device
@@ -325,18 +277,13 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     n_bounce = pt.bounces
     cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
                   if pt.bounce_t_max else cfg)
-    albedo_np = np.asarray(cfg.mesh_color, np.float32)
-    albedo = torch.from_numpy(albedo_np).to(dev)
-    bg_np = np.asarray(cfg.background, np.float32)
-    bg = torch.from_numpy(bg_np).to(dev)
-    key0 = threefry.key(pt.seed, dev)
+    albedo = np.asarray(cfg.mesh_color, np.float32)
+    bg = np.asarray(cfg.background, np.float32)
     spp = pt.samples_per_pixel
     ovf_key = _overflow_stat_key(engine)
 
     with _stage(timings, "shading"):
-        nrm0 = _normalize_flip(bn0, d0)
-        radiance0 = torch.where(hit0[:, None],
-                                _direct_light(nrm0, albedo, cfg), bg)
+        radiance0, nrm0 = path_shade.shade(bn0, d0, hit0, albedo, bg, cfg)
     live0 = hit0.sum().to(torch.int32)
     if n_bounce == 0:
         # Primary-only tracing: no secondary state exists.
@@ -345,27 +292,17 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
             ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
 
     borigin0 = o0 + t0[:, None] * d0 + 1e-4 * nrm0
-    # Pad the per-ray state to a GROUP multiple (dead pad lanes), then
-    # tile it over the samples: lane g = sample * total + pixel.
+    # The per-ray state is padded to a GROUP multiple (dead pad lanes) and
+    # tiled over the samples: lane g = sample * total + pixel.
     pad = (-n) % GROUP
     total = n + pad
     mtotal = spp * total
-
-    def tile_s(x, value=0.0):
-        x = torch.cat([x, torch.full((pad,) + x.shape[1:], value,
-                                     dtype=x.dtype, device=dev)])
-        return x.repeat((spp,) + (1,) * (x.dim() - 1))
-
-    nrm0m = tile_s(nrm0)
-    hit0m = tile_s(hit0, False)
+    alive = torch.cat([hit0, torch.zeros(pad, dtype=torch.bool,
+                                         device=dev)]).repeat(spp)
     idx = torch.arange(mtotal, dtype=torch.int32, device=dev)
-    with _stage(timings, "randoms"):
-        u1 = _rand2(key0, 0, idx, total)
-    with _stage(timings, "shading"):
-        d1 = _cosine_dir(u1, nrm0m)
-    o = tile_s(borigin0)
-    d = torch.where(hit0m[:, None], d1, tile_s(d0, 1.0))
-    alive = hit0m
+    with _stage(timings, "spawn"):
+        o, d = path_shade.spawn(pt.seed, 0, total, nrm0, hit0, borigin0, d0,
+                                lanes=mtotal)
     rad = torch.zeros((mtotal, 3), dtype=torch.float32, device=dev)
 
     caps = _cap_schedule(mtotal, engine, n_bounce)
@@ -401,23 +338,16 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
         with _stage(timings, "shading"):
             # Throughput of every lane read at this bounce: albedo ** b,
             # a constant (the reference's single material).
-            tp_b = torch.from_numpy(_albedo_power(albedo_np, bounce)).to(dev)
-            nrm = _normalize_flip(bn3, d)
-            escaped = alive & ~hit
-            rad = rad + torch.where(escaped[:, None], tp_b * bg, 0.0)
-            direct = _direct_light(nrm, albedo, cfg)
-            rad = rad + torch.where(hit[:, None], tp_b * direct, 0.0)
+            rad, nrm = path_shade.shade(
+                bn3, d, hit, albedo, bg, cfg, alive=alive, rad=rad,
+                tp_b=_albedo_power(albedo, bounce))
         alive = hit
         live_counts.append(alive.sum().to(torch.int32))
         if bounce == n_bounce:
             break
-        with _stage(timings, "randoms"):
-            ub = _rand2(key0, bounce, idx, total)
-        with _stage(timings, "shading"):
-            hit_pos = o + torch.where(hit, bt, 0.0)[:, None] * d
-            new_dir = _cosine_dir(ub, nrm)
-            o = hit_pos + 1e-4 * nrm
-            d = torch.where(alive[:, None], new_dir, d)
+        with _stage(timings, "spawn"):
+            o, d = path_shade.spawn(pt.seed, bounce, total, nrm, hit, o, d,
+                                    idx=idx, t=bt)
 
     # Undo the permutations: idx is a permutation of [0, mtotal).
     rad = torch.cat([rad] + [t[0] for t in reversed(tails)])

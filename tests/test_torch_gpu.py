@@ -4,6 +4,8 @@ tables, in-kernel raygen or a ray matrix; windowed; raw with both ray
 sources) and the instanced frames built on it; the grouped trace (K2) on
 random ray groups over precomputed, compressed and compressed indexed
 scenes, and path-traced frames through both secondary engines; the
+path tracer's bounce kernels pt_spawn / pt_shade against their plain
+versions, per call and over whole frames; the
 per-ray reference backend on the card against the CPU, the perray engine
 against the pallas engine, and the debug render's NaN check.
 
@@ -518,6 +520,99 @@ def test_pathtrace_frame_on_card(cuda, compressed):
         assert int((diff > 0.25).sum()) <= 16
         assert float((ost["live_rays_per_bounce"].cpu() - live).abs().max()
                      ) <= 4
+
+
+def _pt_state(rng, n, dev):
+    """A bounce's state on the card: unnormalised normals (some zero),
+    unit rays, alive and hit masks, origins, t and radiance."""
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    bn = (rng.normal(size=(n, 3)) * 2.5).astype(np.float32)
+    bn[:8] = 0.0
+    bn[8:16] = [0.0, 0.0, 0.9]
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    alive = rng.random(n) < 0.7
+    return dict(bn=t(bn), d=t(d), alive=t(alive),
+                hit=t(alive & (rng.random(n) < 0.6)),
+                o=t(rng.normal(size=(n, 3)).astype(np.float32)),
+                t=t(rng.uniform(0.0, 3.0, n).astype(np.float32)),
+                rad=t(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 - 1])
+def test_path_shade_kernels_match_plain(cuda, seed):
+    """pt_spawn and pt_shade against their plain versions on the card, on
+    a 480x288 frame's lanes (total 139,264, 2 samples): uniforms,
+    origins, radiance and normals bit for bit; directions bit for bit or
+    within 2 ulp of 1 (cos / sin); one launch counted per call."""
+    from rtmm_tpu_torch.ops import path_shade
+    rng = np.random.default_rng(seed % 89)
+    cfg = RenderConfig()
+    albedo = np.asarray(cfg.mesh_color, np.float32)
+    bg = np.asarray(cfg.background, np.float32)
+    n, total, spp = 138240, 139264, 2
+    st = _pt_state(rng, n, cuda)
+    path_shade.reset_launches()
+    rad0, nrm0 = path_shade.shade(st["bn"], st["d"], st["hit"], albedo, bg,
+                                  cfg)
+    prad0, pnrm0 = path_shade.shade_plain(st["bn"], st["d"], st["hit"],
+                                          albedo, bg, cfg)
+    assert torch.equal(rad0, prad0) and torch.equal(nrm0, pnrm0)
+    k = path_shade.spawn(seed, 0, total, nrm0, st["hit"], st["o"], st["d"],
+                         lanes=spp * total, with_u=True)
+    p = path_shade.spawn_plain(seed, 0, total, nrm0, st["hit"], st["o"],
+                               st["d"], lanes=spp * total, with_u=True)
+    eps = float(np.finfo(np.float32).eps)
+    assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
+    assert torch.equal(k[0], p[0])
+    assert float((k[1] - p[1]).abs().max()) <= 2 * eps
+    m = 131072
+    sb = _pt_state(rng, m, cuda)
+    idx = torch.randperm(spp * total, device=cuda)[:m].to(torch.int32)
+    tp = pathtrace._albedo_power(albedo, 2)
+    kr = path_shade.shade(sb["bn"], sb["d"], sb["hit"], albedo, bg, cfg,
+                          alive=sb["alive"], rad=sb["rad"], tp_b=tp)
+    pr = path_shade.shade_plain(sb["bn"], sb["d"], sb["hit"], albedo, bg,
+                                cfg, alive=sb["alive"], rad=sb["rad"],
+                                tp_b=tp)
+    assert torch.equal(kr[0], pr[0]) and torch.equal(kr[1], pr[1])
+    k = path_shade.spawn(seed, 2, total, kr[1], sb["hit"], sb["o"], sb["d"],
+                         idx=idx, t=sb["t"], with_u=True)
+    p = path_shade.spawn_plain(seed, 2, total, kr[1], sb["hit"], sb["o"],
+                               sb["d"], idx=idx, t=sb["t"], with_u=True)
+    assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
+    assert torch.equal(k[0], p[0])
+    assert float((k[1] - p[1]).abs().max()) <= 2 * eps
+    torch.cuda.synchronize()
+    assert path_shade.LAUNCHES == {"pt_spawn": 2, "pt_shade": 2}
+
+
+@pytest.mark.parametrize("engine", ["pallas", "grouped"])
+def test_pathtrace_kernels_equal_plain_frame(cuda, engine, monkeypatch):
+    """A path-traced frame with pt_spawn / pt_shade against the same frame
+    with their plain versions on the card's tensors: within config 5's
+    gate (bit for bit where cos / sin agree), live counts equal."""
+    from rtmm_tpu_torch.ops import path_shade
+    scene = _scene(0, 3, cuda)
+    cfg = RenderConfig(width=96, height=64, sub_frusta=8)
+    pt = pathtrace.PathTraceConfig(bounces=3, samples_per_pixel=2,
+                                   engine=engine)
+    tracer = pathtrace.PathTracer(scene, cfg, pt)
+    ivp = _ivp(96, 64)
+    path_shade.reset_launches()
+    img, st = tracer.render(ivp)
+    torch.cuda.synchronize()
+    assert path_shade.LAUNCHES == {"pt_spawn": 3, "pt_shade": 4}
+    monkeypatch.setattr(path_shade, "spawn", path_shade.spawn_plain)
+    monkeypatch.setattr(path_shade, "shade", path_shade.shade_plain)
+    plain, pst = tracer.render(ivp)
+    gate = image_gate(img, plain, per=500, big_per=500)
+    print(f"bit-equal {torch.equal(img, plain)}; {gate}")
+    assert gate["ok"]
+    assert torch.equal(st["live_rays_per_bounce"],
+                       pst["live_rays_per_bounce"])
 
 
 def test_perray_backend_on_card_matches_cpu(cuda):
