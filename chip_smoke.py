@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero):
   3. main path, with the launch counters set to 0 just before and read
      just after: one 1920x1080 frame with stats, a 32-frame orbit through
      render_frames (one launch), Renderer.render_u8 for 2 frames and a
-     FramePipeline over 3 frames;
+     FramePipeline over 3 frames; each launch's prologue one tile_frusta
+     and one cluster_select launch (csrc/prologue.cu);
   4. correctness: the kernel against its plain PyTorch version on the same
      inputs on the card (two-tier image gate, per-tile visit and eligible
      counts equal), total visits within 5% of the fixed-camera pin;
@@ -31,10 +32,20 @@ Phases (any failure raises and exits non-zero):
      every frame of a launch chunk) on the orbits of configs 3 (64 frames:
      two chunks), 9 (K1c), 6 (32 frames at 1080p each) and 1 (256 frames
      at 256x256): its rows bit-equal to per-frame frame_inputs, one fused
-     launch per chunk (counted), every frame equal to render_frame; the
-     chunk's prologue kernel events and peak memory (torch.profiler), its
-     ms per frame beside the per-frame loop's, the kernel's and the
-     orbit's, and the orbit's device busy share;
+     launch per chunk (counted, and one tile_frusta and one
+     cluster_select per chunk), every frame equal to render_frame; the
+     chunk's prologue kernel launch calls (host events of a torch.profiler
+     trace) and peak memory, its ms per frame (host, device queued behind
+     a spin) beside the per-frame loop's, the kernel's and the orbit's,
+     and the orbit's busy share (its queued device ms over its ms);
+ 6c. the prologue kernels (csrc/prologue.cu via ops/prologue.py):
+     tile_frusta and cluster_select bit for bit against their plain
+     versions on config 3's and config 6's 32-frame 1080p chunks, each
+     launch's device time (queued behind a spin) beside its wrapper's ms
+     per call, its plain version's and its bound; the same checks and
+     times on config 7's frusta, cull and first two windows (phase 7c),
+     config 8's world frusta, instance cull and merged rows (phase 9) and
+     config 5's primary (phase 14);
   7. windowed walks (K1b): (a) config 3 with 4 clusters per window,
      against phase 3's fused frame, and (b) config 7's construction
      (level-3 plane, compressed) cut from a 707x707 to a 160x160 grid
@@ -114,7 +125,8 @@ Phases (any failure raises and exits non-zero):
      with its own heatmap (traversal_steps_total equal to the heatmap's
      sum), the kernel visits of --stats' path equal to the pin, and a
      torch.profiler trace of one 32-frame orbit with the device's busy
-     share of the traced window;
+     share of the traced window, in a process of its own (its three
+     launches counted there);
  18. the path tracer's perray engine on config 5's scene with its
      hierarchy at phase 14's 256x256 gate frame (pt_spawn, pt_shade;
      counted), against the pallas engine (K1d, K2, pt_spawn, pt_shade;
@@ -149,8 +161,11 @@ Phases (any failure raises and exits non-zero):
      with 4-frame orbits, their launches counted from 0 and their
      verifies within budget.
 
-The last lines are the kernel table as JSON, the card as nvidia-smi
-reports it, and {"ok": true, "device": {...}}.
+The windowed (7c), instanced (9, 11) and path-traced (14, 15) main
+paths also count their tile_frusta and cluster_select launches. The last
+lines are the kernel table as JSON (tile_frusta and cluster_select last,
+with every case of phase 6c), the card as nvidia-smi reports it, and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -423,17 +438,25 @@ def _budget_rows(ccount, vis, budget: int) -> list[int]:
 def _expect_launches(what: str, expected: dict) -> dict:
     """The launch counts since the last reset; exactly the kernels of
     `expected` must have launched, each as often as given (None: at least
-    once)."""
-    from rtmm_tpu_torch.ops import group_trace, path_shade, tile_trace
-    got = {k: n for k, n in (*tile_trace.LAUNCHES.items(),
-                             *group_trace.LAUNCHES.items(),
-                             *path_shade.LAUNCHES.items()) if n}
+    once), the prologue kernels (tile_frusta, cluster_select) included."""
+    from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
+                                    tile_trace)
+    counts = [*tile_trace.LAUNCHES.items(), *group_trace.LAUNCHES.items(),
+              *path_shade.LAUNCHES.items(), *prologue.LAUNCHES.items()]
+    got = {k: n for k, n in counts if n}
     wrong = set(got) != set(expected) or any(
         n is not None and got[k] != n for k, n in expected.items())
     _log(f"[{what}] launches {got}")
     if wrong:
         raise RuntimeError(f"{what}: launches {got}, expected {expected}")
     return got
+
+
+def _prologue(frusta, select) -> dict:
+    """An expectation's prologue entries: tile_frusta and cluster_select
+    launches (None: at least once; 0: none)."""
+    return {k: n for k, n in (("tile_frusta", frusta),
+                              ("cluster_select", select)) if n != 0}
 
 
 def _entry(name: str, mode: str, launches: int, err: float, ms: float,
@@ -537,11 +560,11 @@ def phase_config9(card, ivp, cfg, counted, geo):
     ivps = np.stack([_camera(25.0 + 360.0 / ORBIT_9 * k, cfg)
                      for k in range(ORBIT_9)])
 
-    tile_trace.reset_launches()
+    _reset_all()
     img, stats = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
     orbit = tile_trace.render_frames(scene, ivps, cfg)
     torch.cuda.synchronize()
-    launches = counted("tile_trace_fused_compressed")
+    launches = counted("tile_trace_fused_compressed", 2, 2)
     _log(f"[config 9 main path] launches of tile_trace_fused_compressed: "
          f"{launches} (1 frame + 1 orbit of {ORBIT_9})")
     if launches != 2:
@@ -617,12 +640,35 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _profiled(fn) -> dict:
-    """stats.device_busy of one call of fn under torch.profiler."""
+    """stats.device_busy of one call of fn under torch.profiler, and
+    "launch_calls": the kernel launch calls (cudaLaunchKernel,
+    cuLaunchKernel, ...) among the trace's CUDA runtime and driver
+    events, a driver call inside a runtime call counted once. Those are
+    taken on the host and every trace has held them; on the card's
+    machine the device's events of a trace come back offset by
+    milliseconds or not at all, the more often the shorter the trace
+    (PERF.md section 7), so a count of a call's kernels reads
+    launch_calls."""
     from rtmm_tpu_torch.utils import stats
     with tempfile.TemporaryDirectory() as logdir:
         with stats.profiler_trace(logdir):
             fn()
-        return stats.device_busy(logdir)
+        busy = stats.device_busy(logdir)
+        with open(os.path.join(logdir, "trace.json")) as f:
+            api = [e for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and "dur" in e
+                   and e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    runtime = [(e.get("tid"), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in api if e["cat"] == "cuda_runtime"]
+
+    def inside_runtime(e):
+        return any(tid == e.get("tid") and lo <= float(e["ts"]) <= hi
+                   for tid, lo, hi in runtime)
+
+    busy["launch_calls"] = sum(
+        1 for e in api if "LaunchKernel" in e.get("name", "")
+        and (e["cat"] == "cuda_runtime" or not inside_runtime(e)))
+    return busy
 
 
 def _queued_ms(fn, reps: int = 20, rounds: int = 5) -> float:
@@ -648,12 +694,240 @@ def _queued_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+# Least-time counts of the prologue kernels (csrc/prologue.cu), float32
+# operations. tile_frusta, per corner direction of a tile's sub-cone grid:
+# the NDC (2 divisions, 2 products, 2 subtractions), two unprojects (4
+# rows of 3 products and 3 sums, 3 divisions: 27 each), the difference
+# (3), the norm (5 and a square root) and 3 divisions: 72; per cone plane
+# the cross product (9), the corner-sum dot (5), its compare and the sign
+# product (4): 18, and per cone the corner sum (9); per frame the apex: 4
+# unprojects (108), their NDC (8), 2 differences and w (9), 5 dots (25),
+# the denominator and its guard (5), s and t (8), the point (15): 178.
+# cluster_select, per (row, cluster) culled: the box relative to the apex
+# (6), per plane 3 selects, 3 products, 2 sums and a compare (4 x 9): 42;
+# per cluster a row holds (culled in, or remaining): its distance (3 + 3
+# subtractions, 3 maxima, 3 clamps, 3 products, 2 sums and a square root:
+# 18) and its window compare (3).
+FRUSTA_OPS_CORNER, FRUSTA_OPS_PLANE, FRUSTA_OPS_CONE = 72, 18, 9
+FRUSTA_OPS_APEX = 178
+SELECT_OPS_CULL, SELECT_OPS_HELD = 42, 18 + 3
+# name -> the kernel-vs-plain cases of each prologue kernel, in run order.
+PROLOGUE_CASES: dict = {"tile_frusta": {}, "cluster_select": {}}
+
+
+def _prologue_bound(kind, args, kw, out, held) -> tuple[float, str, str]:
+    """Least time of one prologue launch on these inputs: its bytes (each
+    input read once, each output written once) over the HBM rate, or its
+    float32 operations over the fp32 peak, the larger; `held` is the
+    (row, cluster) pairs the rows hold (the distances the lists need)."""
+    if kind == "tile_frusta":
+        ivp, nsub, nrows = torch.as_tensor(args[0]), args[5], args[6]
+        n_frames = ivp.numel() // 16
+        rows = out.normals[..., 0, 0].numel()
+        corners = (nrows + 1) * (nsub // nrows + 1)
+        ops = (rows * (corners * FRUSTA_OPS_CORNER + (nsub + 1)
+                       * (4 * FRUSTA_OPS_PLANE + FRUSTA_OPS_CONE))
+               + n_frames * FRUSTA_OPS_APEX)
+        # With a pack the sub-planes are written once, into the pack
+        # (out.sub_normals is a view of it).
+        written = (out.apex, out.normals,
+                   out.sub_normals if out.frus is None else out.frus)
+        nbytes = n_frames * 64 + _nbytes(*written) + (
+            24 if out.frus is not None else 0)
+        what = f"{rows} tile rows x {corners} corners"
+    else:
+        apex, planes, lo, hi, valid = args[:5]
+        rows = out.ccount.shape[0] if out.ccount is not None else (
+            out.any if out.any is not None else out.hit).shape[0]
+        n_cl = lo.shape[0]
+        culled = rows * n_cl if kw.get("remaining") is None else 0
+        ops = culled * SELECT_OPS_CULL + held * SELECT_OPS_HELD
+        nbytes = (_nbytes(apex, planes, lo, hi, valid, kw.get("remaining"),
+                          kw.get("row_valid")) + _nbytes(*out))
+        what = f"{rows} rows x {n_cl} clusters, {held} held"
+    ops_ms = ops / PEAK_FP32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, (
+        f"{what}: {ops:.4e} fp32 ops / 67 TFLOP/s = {ops_ms:.6f} ms; "
+        f"{nbytes / 1e6:.3f} MB / 3.35 TB/s = {bytes_ms:.6f} ms")
+
+
+def _prologue_case(card, case: str, kind: str, args, kw=None) -> dict:
+    """One prologue kernel on the inputs a path gives it: bit for bit its
+    plain version on the same inputs (every output), its device ms per
+    launch (20 launches queued behind a spin), its wrapper's ms per call,
+    the plain version's ms and the bound. Raises on any difference."""
+    from rtmm_tpu_torch.ops import prologue
+    kw = dict(kw or {})
+    kernel = getattr(prologue, kind)
+    plain = getattr(prologue, kind + "_plain")
+    k = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    p = plain(*args, **kw)
+    differ = [f for f, a, b in zip(type(k)._fields, k, p)
+              if (a is None) != (b is None)
+              or (a is not None and not _bit_equal(a, b))]
+    if differ:
+        raise RuntimeError(f"{kind} on {case}: {differ} differ from the "
+                           "plain version")
+    err = max([float((a.float() - b.float()).abs().max()) for a, b in
+               zip(k, p) if a is not None and a.numel()
+               and a.dtype == torch.float32 and bool(torch.isfinite(a).all())]
+              or [0.0])
+    if kind == "cluster_select":
+        held_mask = kw.get("remaining")
+        if held_mask is None:
+            held_mask = plain(*args, **{**kw, "want_hit": True}).hit
+        held = int(held_mask.sum())
+    else:
+        held = 0
+    device_ms = _queued_ms(lambda: kernel(*args, **kw))
+    wrapper_ms = _events_ms(lambda: kernel(*args, **kw), reps=20)
+    plain_ms = _events_ms(lambda: plain(*args, **kw), reps=1, rounds=3)
+    bound_ms, by, detail = _prologue_bound(kind, args, kw, k, held)
+    _log(f"[prologue {kind} {case}] {card}: bit-equal to the plain version "
+         f"({', '.join(f for f, a in zip(type(k)._fields, k) if a is not None)}"
+         f"); device {device_ms:.6f} ms per launch (wrapper "
+         f"{wrapper_ms:.4f} ms per call), plain {plain_ms:.4f} ms; bound "
+         f"{bound_ms:.6f} ms ({by}: {detail}), at {bound_ms / device_ms:.3f} "
+         f"of it")
+    res = {"ms": device_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+    PROLOGUE_CASES[kind][case] = res
+    return res
+
+
+def _prologue_chunk_cases(card, name, scene, cfg, ivps) -> None:
+    """tile_frusta and cluster_select on a fused launch chunk's inputs
+    (frames_inputs)."""
+    from rtmm_tpu_torch.ops import prologue, tiled, tile_trace
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    ivps = torch.as_tensor(ivps, dtype=torch.float32, device=scene.device)
+    frusta = (ivps, cfg.width, cfg.height, pw, ph, cfg.sub_frusta,
+              cfg.sub_rows)
+    _prologue_case(card, name, "tile_frusta", frusta,
+                   dict(pack="raygen", scene_aabb=scene.exit_aabb))
+    fr = prologue.tile_frusta(*frusta)
+    _prologue_case(card, name, "cluster_select", (
+        fr.apex, fr.normals.reshape(-1, 4, 3), scene.cluster_aabb_min,
+        scene.cluster_aabb_max, scene.cluster_valid,
+        tile_trace.clusters_per_window(scene, cfg)),
+        dict(rows_per_apex=fr.normals.shape[1]))
+
+
+def _prologue_frame_cases(card, name, scene, ivp, cfg, windows=0) -> None:
+    """The ray-matrix frame's prologue (ray_frame_inputs: the frusta with
+    the pack, the cull) and its lists (cluster_lists), or its first
+    `windows` cluster windows."""
+    from rtmm_tpu_torch.ops import prologue, tiled, tile_trace
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    ivp = torch.as_tensor(ivp, dtype=torch.float32, device=scene.device)
+    frusta = (ivp, cfg.width, cfg.height, pw, ph, cfg.sub_frusta,
+              cfg.sub_rows)
+    _prologue_case(card, name, "tile_frusta", frusta,
+                   dict(pack="plain", scene_aabb=scene.exit_aabb))
+    fr = prologue.tile_frusta(*frusta)
+    n_tiles = fr.normals.shape[0]
+    boxes = (scene.cluster_aabb_min, scene.cluster_aabb_max)
+    _prologue_case(card, f"{name} cull", "cluster_select", (
+        fr.apex[None], fr.normals, *boxes, scene.cluster_valid, 0),
+        dict(rows_per_apex=n_tiles, want_hit=True))
+    hit = prologue.cluster_select(
+        fr.apex[None], fr.normals, *boxes, scene.cluster_valid, 0,
+        rows_per_apex=n_tiles, want_hit=True).hit
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    if not windows:
+        _prologue_case(card, f"{name} lists", "cluster_select", (
+            fr.apex[None], None, *boxes, None, kc),
+            dict(remaining=hit, rows_per_apex=n_tiles))
+        return
+    remaining = hit & hit.any(dim=1)[:, None]
+    for w in range(windows):
+        kw = dict(remaining=remaining, rows_per_apex=n_tiles, window=True)
+        _prologue_case(card, f"{name} window {w + 1}", "cluster_select", (
+            fr.apex[None], None, *boxes, None, kc), kw)
+        remaining = prologue.cluster_select(
+            fr.apex[None], None, *boxes, None, kc, **kw).new_remaining
+
+
+def _prologue_instanced_cases(card, name, scene, ring, ivp, cfg) -> None:
+    """The merged launch's prologue: the world frusta (world_frame), the
+    (instance, tile) cull (instance_cull) and the rows' lists
+    (merged_launch_inputs)."""
+    from rtmm_tpu_torch.ops import tiled, tile_trace
+    from rtmm_tpu_torch.render import instances as inst_mod
+    dev = scene.device
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    _prologue_case(card, name, "tile_frusta", (
+        torch.as_tensor(ivp, dtype=torch.float32, device=dev), cfg.width,
+        cfg.height, pw, ph, cfg.sub_frusta, cfg.sub_rows))
+    rot, trn, scl = inst_mod.instance_tensors(ring, dev)
+    world = inst_mod.world_frame(ivp, cfg, dev)
+    _, apex_o, normals_o, _ = inst_mod.instance_cull(scene, rot, trn, scl,
+                                                     world)
+    launch = inst_mod.merged_launch_inputs(scene, rot, trn, scl, ivp, world,
+                                           cfg)
+    boxes = (scene.cluster_aabb_min, scene.cluster_aabb_max,
+             scene.cluster_valid)
+    _prologue_case(card, f"{name} instance cull", "cluster_select", (
+        apex_o, normals_o.reshape(-1, 4, 3), *boxes, 0),
+        dict(rows_per_apex=normals_o.shape[1], want_any=True))
+    _prologue_case(card, f"{name} rows", "cluster_select", (
+        apex_o[launch.row_inst], normals_o[launch.row_inst, launch.row_tile],
+        *boxes, tile_trace.clusters_per_window(scene, cfg)),
+        dict(row_valid=launch.row_valid))
+
+
+def _prologue_entries(launches: dict) -> list:
+    """The kernel line's entries of the two prologue kernels: launches
+    from the main path, the numbers from config 3's chunk (the main
+    path's shapes), every case beside them."""
+    replaces = {
+        "tile_frusta": "rtmm_tpu/ops/culling.py:56 (tile_frustums), :159 "
+                       "(tile_sub_frustums); rtmm_tpu/ops/tiled.py:291 "
+                       "(frustum_scalars): XLA-fused, no Pallas kernel "
+                       "behind it",
+        "cluster_select": "rtmm_tpu/ops/culling.py:207 (cull_units), :219 "
+                          "(aabb_distance); rtmm_tpu/ops/tiled.py:193 "
+                          "(_select_nearest_clusters, top_k), "
+                          "rtmm_tpu/ops/pallas_tiled.py:1503: XLA-fused, "
+                          "no Pallas kernel behind it"}
+    out = []
+    for kind in ("tile_frusta", "cluster_select"):
+        main = PROLOGUE_CASES[kind]["config 3 chunk"]
+        out.append({"name": kind, "route": "cuda",
+                    "source": "rtmm_tpu_torch/csrc/prologue.cu",
+                    "replaces": replaces[kind],
+                    "launches": launches[kind],
+                    "max_abs_err": max(c["max_abs_err"] for c in
+                                       PROLOGUE_CASES[kind].values()),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": None,
+                    "wrapper_ms": main["wrapper_ms"],
+                    "cases": PROLOGUE_CASES[kind]})
+    return out
+
+
+def phase_prologue_kernels(card, scenes, cfg) -> None:
+    """The two prologue kernels against their plain versions, bit for bit,
+    on the fused launch chunks of configs 3 (20 clusters) and 6 (200
+    clusters): 32 frames at 1080p, the bench's chunk."""
+    for name in ("config 3", "config 6"):
+        ivps = np.stack([_camera(25.0 + 360.0 / ORBIT_FRAMES * k, cfg)
+                         for k in range(ORBIT_FRAMES)])
+        _prologue_chunk_cases(card, f"{name} chunk", scenes[name], cfg, ivps)
+
+
 def _batched_prologue(card, name, scene, cfg, ivps, kernel) -> dict:
     """One configuration's orbit through the batched prologue: its rows
     bit-equal to per-frame frame_inputs, one fused launch per chunk, each
-    frame equal to render_frame; the chunk's prologue kernel events, peak
-    memory and ms per frame beside the per-frame loop's, the kernel's and
-    the orbit's, and the orbit's busy share."""
+    frame equal to render_frame; the chunk's prologue kernel launch calls,
+    peak memory and ms per frame beside the per-frame loop's, the kernel's
+    and the orbit's, and the orbit's busy share: its device ms, queued
+    behind a spin, over its ms."""
+    from rtmm_tpu_torch.ops import prologue as prologue_kernels
     from rtmm_tpu_torch.ops import tiled, tile_trace
 
     n = len(ivps)
@@ -679,7 +953,8 @@ def _batched_prologue(card, name, scene, cfg, ivps, kernel) -> dict:
     _reset_all()
     orbit = tile_trace.render_frames(scene, ivps, cfg)
     torch.cuda.synchronize()
-    _expect_launches(f"{name} orbit of {n}", {kernel: n // f})
+    _expect_launches(f"{name} orbit of {n}", {
+        kernel: n // f, "tile_frusta": n // f, "cluster_select": n // f})
     for k in range(n):
         if not torch.equal(orbit[k],
                            tile_trace.render_frame(scene, ivps[k], cfg)):
@@ -705,39 +980,63 @@ def _batched_prologue(card, name, scene, cfg, ivps, kernel) -> dict:
     def orbit_once():
         tile_trace.render_frames(scene, ivps, cfg)
 
-    events = _profiled(prologue)["kernels"]
-    events_1 = _profiled(lambda: tile_trace.frames_inputs(
-        scene, chunk[:1], cfg, kc))["kernels"]
-    busy = _profiled(orbit_once)
+    def traced_launches(fn):
+        """Kernel launch calls in a profiler trace of one call of fn, and
+        the prologue kernels' launches counted in that call."""
+        before = sum(prologue_kernels.LAUNCHES.values())
+        calls = _profiled(fn)["launch_calls"]
+        return calls, sum(prologue_kernels.LAUNCHES.values()) - before
+
+    events, own = traced_launches(prologue)
+    events_1, own_1 = traced_launches(lambda: tile_trace.frames_inputs(
+        scene, chunk[:1], cfg, kc))
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prologue()
+        host.append((time.perf_counter() - t0) * 1e3)
     for fn in (prologue, per_frame, launch, orbit_once):
         fn()
+    orbit_ms = _events_ms(orbit_once, reps=1)
+    orbit_device_ms = _queued_ms(orbit_once, reps=1, rounds=3)
     res = {"frames": n, "frames_per_launch": f, "launches": n // f,
            "prologue_events_per_chunk": events,
            "prologue_events_one_frame": events_1,
            "prologue_peak_mib": peak_mib,
            "prologue_ms_per_frame": _events_ms(prologue, reps=1) / f,
+           "prologue_host_ms_per_frame": statistics.median(host) / f,
+           "prologue_device_ms_per_frame": _queued_ms(prologue,
+                                                      reps=10) / f,
            "per_frame_loop_ms_per_frame": _events_ms(per_frame, reps=1,
                                                      rounds=3) / f,
            "kernel_ms_per_frame": _events_ms(launch, reps=1) / f,
-           "orbit_ms_per_frame": _events_ms(orbit_once, reps=1) / n,
-           "orbit_busy_share": busy["share"]}
+           "orbit_ms_per_frame": orbit_ms / n,
+           "orbit_device_ms_per_frame": orbit_device_ms / n,
+           "orbit_busy_share": orbit_device_ms / orbit_ms}
     mrays = cfg.width * cfg.height / (res["orbit_ms_per_frame"] * 1e-3) / 1e6
     _log(f"[batched prologue {name}] {card}: {n} frames at {cfg.width}x"
          f"{cfg.height}, C = {scene.num_clusters}, {n // f} launch(es) of "
          f"{f} frames ({kernel}); rows bit-equal to per-frame frame_inputs "
          f"({rows[0].shape[0]} rows: ccand, ccount, centry, frus); every "
          f"frame equal to render_frame. Chunk prologue: {events} kernel "
-         f"events ({events_1} for one frame alone), peak memory "
-         f"{peak_mib:.1f} MiB, "
-         f"{res['prologue_ms_per_frame']:.4f} ms/frame (per-frame loop "
+         f"launch calls in its profiler trace ({events_1} for one frame "
+         f"alone), peak memory {peak_mib:.1f} MiB, "
+         f"{res['prologue_ms_per_frame']:.4f} ms/frame (host "
+         f"{res['prologue_host_ms_per_frame']:.4f}, device "
+         f"{res['prologue_device_ms_per_frame']:.4f} queued; per-frame loop "
          f"{res['per_frame_loop_ms_per_frame']:.4f}); kernel "
          f"{res['kernel_ms_per_frame']:.4f} ms/frame; orbit "
          f"{res['orbit_ms_per_frame']:.4f} ms/frame ({mrays:.1f} Mrays/s), "
-         f"device busy {busy['busy_us'] / 1e3:.4f} of "
-         f"{busy['window_us'] / 1e3:.4f} ms: share {busy['share']}")
-    if busy["share"] is None or not events:
-        raise RuntimeError(f"{name}: the profiler trace holds no CUDA "
-                           f"kernel event: {busy}")
+         f"device {res['orbit_device_ms_per_frame']:.4f} ms/frame queued: "
+         f"busy share {res['orbit_busy_share']}")
+    if not own or events < own or events_1 < own_1:
+        raise RuntimeError(f"{name}: the profiler traces hold {events} and "
+                           f"{events_1} kernel launch calls, the prologue "
+                           f"kernels counted {own} and {own_1}")
+    if not res["orbit_busy_share"] > 0.0:
+        raise RuntimeError(f"{name}: the orbit's busy share is "
+                           f"{res['orbit_busy_share']}")
     return res
 
 
@@ -775,11 +1074,11 @@ def phase_windowed3(card, scene, ivp, cfg, counted, img_fused,
 
     cfg_w = dataclasses.replace(
         cfg, kernel_clusters_per_window=CLUSTERS_PER_WINDOW_3)
-    tile_trace.reset_launches()
+    _reset_all()
     img, stats = tile_trace.render_frame(scene, ivp, cfg_w, with_stats=True)
     torch.cuda.synchronize()
-    launches = counted("tile_trace_windowed")
     windows = stats["windows"]
+    launches = counted("tile_trace_windowed", 1, 1 + windows)
     _log(f"[windowed 3 main path] launches of tile_trace_windowed: "
          f"{launches} ({windows} windows of {CLUSTERS_PER_WINDOW_3} of "
          f"{scene.num_clusters} clusters)")
@@ -871,11 +1170,11 @@ def phase_windowed7(card, ivp, cfg, counted):
          f"{scene.device_bytes() / 2**20:.1f} MiB on the card; mesh "
          f"{t_mesh:.1f} s, build {t_build:.1f} s")
 
-    tile_trace.reset_launches()
+    _reset_all()
     img, stats = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
     torch.cuda.synchronize()
-    launches = counted("tile_trace_windowed_compressed")
     windows = stats["windows"]
+    launches = counted("tile_trace_windowed_compressed", 1, 1 + windows)
     vis = stats["kernel_unit_visits"]
     hit = float((img != torch.tensor(cfg.background, device=img.device))
                 .any(-1).float().mean())
@@ -987,11 +1286,11 @@ def phase_config7(card, ivp, cfg, counted):
          f"{t_mesh + t_build:.1f} s)")
 
     torch.cuda.reset_peak_memory_stats()
-    tile_trace.reset_launches()
+    _reset_all()
     (img, stats), first_ms = _timed(lambda: tile_trace.render_frame(
         scene, ivp, cfg, with_stats=True))
-    launches = counted("tile_trace_windowed_compressed")
     windows = stats["windows"]
+    launches = counted("tile_trace_windowed_compressed", 1, 1 + windows)
     nvis = int(stats["kernel_unit_visits"].sum())
     hit = float((img != torch.tensor(cfg.background, device=img.device))
                 .any(-1).float().mean())
@@ -1027,6 +1326,7 @@ def phase_config7(card, ivp, cfg, counted):
          f"|diff| t and normals {err:.3e}; plain {plain_ms:.1f} ms")
     if len(rows) < min(4, len(nonempty)) or err > MAX_ABS_ERR:
         raise RuntimeError("config 7: kernel disagrees or too few rows")
+    _prologue_frame_cases(card, "config 7", scene, ivp, cfg, windows=2)
 
     gate, mode, (vw, vh), k_ms, ref_ms = _gated_verify(scene, cfg, n_units)
     _log(f"[config 7 verify] {card}: bench.py's verify at {vw}x{vh}, {mode} "
@@ -1097,11 +1397,11 @@ def phase_small_configs(card, counted) -> dict:
         n_units = int(scene.unit_valid.sum())
         cfg = RenderConfig(width=w, height=h)
         ivp = _camera(25.0, cfg)
-        tile_trace.reset_launches()
+        _reset_all()
         img, stats = tile_trace.render_frame(scene, ivp, cfg,
                                              with_stats=True)
         torch.cuda.synchronize()
-        launches = counted("tile_trace_fused")
+        launches = counted("tile_trace_fused", 1, 1)
         nvis = int(stats["kernel_unit_visits"].sum())
         _log(f"[{name}] {mesh.num_triangles} base triangles, level "
              f"{mesh.max_level}{', tessellated' if tess else ''}: U = "
@@ -1216,18 +1516,20 @@ def phase_config4(card, base, cfg):
          f"units, C = {baked.num_clusters} clusters; "
          f"{baked.device_bytes() / 2**20:.2f} MiB baked against "
          f"{base.device_bytes() / 2**20:.2f} MiB shared + 6 x 13 floats")
-    tile_trace.reset_launches()
+    _reset_all()
     img, stats = tile_trace.render_frame(baked, ivp, cfg, with_stats=True)
     torch.cuda.synchronize()
-    _expect_launches("config 4 baked", {"tile_trace_fused": 1})
+    _expect_launches("config 4 baked", {"tile_trace_fused": 1,
+                                        **_prologue(1, 1)})
     nvis = int(stats["kernel_unit_visits"].sum())
     _log(f"[config 4] visits {nvis}, pin {EXPECTED_VISITS_4} (bench.py:265)")
     if abs(nvis - EXPECTED_VISITS_4) > VISITS_RTOL * EXPECTED_VISITS_4:
         raise RuntimeError(f"config 4 visits {nvis} outside 5% of the pin")
-    tile_trace.reset_launches()
+    _reset_all()
     two_level = inst_mod.render_instanced(base, ring, ivp, cfg)
     torch.cuda.synchronize()
-    _expect_launches("config 4 two-level", {"tile_trace_raw": 1})
+    _expect_launches("config 4 two-level", {"tile_trace_raw": 1,
+                                            **_prologue(1, 2)})
     gate = image_gate(img, two_level)
     _log(f"[config 4] baked vs two-level: {gate}; covered "
          f"{_covered(img, cfg):.4f}")
@@ -1388,13 +1690,16 @@ def phase_instanced(card, base, cfg, n_inst: int):
     ivps = [_camera(25.0 + 360.0 / ORBIT_8 * k, cfg, DIST_8)
             for k in range(ORBIT_8)]
 
-    tile_trace.reset_launches()
+    _reset_all()
     img = renderer.render(ivp)
     u8 = renderer.render_u8(ivp)
     orbit = [renderer.render(m) for m in ivps]
     torch.cuda.synchronize()
     launches = _expect_launches(
-        f"{name} main path", {"tile_trace_raw": 2 + ORBIT_8})["tile_trace_raw"]
+        f"{name} main path", {"tile_trace_raw": 2 + ORBIT_8,
+                              "tile_frusta": 2 + ORBIT_8,
+                              "cluster_select": 2 * (2 + ORBIT_8)}
+    )["tile_trace_raw"]
     quant = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
     if not (all(bool(torch.isfinite(f).all()) for f in [img, *orbit])
             and tuple(img.shape) == (HEIGHT, WIDTH, 3)
@@ -1411,6 +1716,8 @@ def phase_instanced(card, base, cfg, n_inst: int):
 
     err, kernel_ms, plain_ms, bound, stages, plain_rows = _merged_check(
         card, name, base, ring, ivp, cfg, img)
+    if n_inst == 64:
+        _prologue_instanced_cases(card, name, base, ring, ivp, cfg)
     verify = _verify_instanced(name, base, ring)
 
     def frame_once():
@@ -1451,12 +1758,13 @@ def phase_instanced_compressed(card, mesh, cfg, img8):
                                           device="cuda")
     ring = _ring(64)
     ivp = _camera(25.0, cfg, DIST_8)
-    tile_trace.reset_launches()
+    _reset_all()
     img = inst_mod.render_instanced(base_c, ring, ivp, cfg)
     torch.cuda.synchronize()
     launches = _expect_launches(
         "config 8 compressed main path",
-        {"tile_trace_raw_compressed": 1})["tile_trace_raw_compressed"]
+        {"tile_trace_raw_compressed": 1, **_prologue(1, 2)}
+    )["tile_trace_raw_compressed"]
     gate = image_gate(img, img8)
     _log(f"[config 8 compressed] base {base_c.device_bytes() / 2**20:.2f} "
          f"MiB on the card; frame vs the precomputed base's: {gate}")
@@ -1490,11 +1798,12 @@ def phase_overflow(base, verify):
         base, *inst_mod.instance_tensors(ring, base.device), ivpv, world,
         cfg1)
     n_over = int(launch.overflow.sum())
-    tile_trace.reset_launches()
+    _reset_all()
     capped, ms = _timed(lambda: inst_mod.render_instanced(base, ring, ivpv,
                                                           cfg1))
-    got = _expect_launches("forced overflow", {"tile_trace_raw": 1,
-                                               "tile_trace_windowed": None})
+    got = _expect_launches("forced overflow", {
+        "tile_trace_raw": 1, "tile_trace_windowed": None, "tile_frusta": 1,
+        "cluster_select": None})
     gate = image_gate(capped, default)
     _log(f"[forced overflow] pool {launch.frus.shape[0]} rows for S = "
          f"{int(launch.n_seen.sum())}: {n_over} of 64 instances overflow and "
@@ -1579,10 +1888,12 @@ def _k2_recording(rec: dict, launches: bool):
 
 
 def _reset_all():
-    from rtmm_tpu_torch.ops import group_trace, path_shade, tile_trace
+    from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
+                                    tile_trace)
     tile_trace.reset_launches()
     group_trace.reset_launches()
     path_shade.reset_launches()
+    prologue.reset_launches()
 
 
 def _k2_check(card, name, launch, derive):
@@ -1715,7 +2026,9 @@ def _pt_frames(tracer, ivps, name, kernels):
     got = _expect_launches(f"{name} main path",
                            {raw: len(ivps), k2: rec["windows"],
                             "pt_spawn": len(ivps) * PT_BOUNCES,
-                            "pt_shade": len(ivps) * (PT_BOUNCES + 1)})
+                            "pt_shade": len(ivps) * (PT_BOUNCES + 1),
+                            "tile_frusta": len(ivps),
+                            "cluster_select": 2 * len(ivps)})
     for img, st in out:
         live = st["live_rays_per_bounce"]
         if not (bool(torch.isfinite(img).all())
@@ -2019,6 +2332,7 @@ def phase_config5(card):
     out, got = _pt_frames(tracer, [ivp, ivp] + ivps, "config 5",
                           ("tile_trace_raw", "group_trace"))
     k2_launches = got["group_trace"]
+    _prologue_frame_cases(card, "config 5 primary", scene, ivp, cfg)
     img0, st0 = out[0]
     if not (torch.equal(out[1][0], img0) and torch.equal(out[2][0], img0)):
         raise RuntimeError("config 5: frame 0 is not deterministic")
@@ -2291,7 +2605,7 @@ def phase_perray(card, mesh, img_main, ivp, cfg):
             shading.shade_or_miss(hit, nrm, -dc, cfg_ray)
         busy = stats.device_busy(logdir)
     torch.cuda.synchronize()
-    _expect_launches("per-ray frames", {})
+    _expect_launches("per-ray frames", {})   # no kernel, prologue's neither
     n = cfg.width * cfg.height
     n_chunks = -(-n // chunk)
     # The default frame: exact wherever a ray enters at most
@@ -2344,9 +2658,42 @@ def phase_perray(card, mesh, img_main, ivp, cfg):
     return scene
 
 
+def _stats_orbit_child() -> None:
+    """Phase 17's profiled orbit, in a process of its own: config 3's
+    scene with its hierarchy tables, one warm-up orbit, then one 32-frame
+    orbit (render_frames) under torch.profiler, counted. Prints its
+    device_busy and launches as one JSON line. A stopgap: on the H100
+    machines this runs on, a trace's device events come back offset
+    from their launch calls by milliseconds, or not at all, more often
+    the longer the profiled process has run and whatever kernels ran
+    (tools/profiler_probe.py); late in this script's own process an
+    orbit of three launches traced none, while a fresh process's first
+    session has held them."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.io import loader
+    from rtmm_tpu_torch.models import scene as scene_mod
+    from rtmm_tpu_torch.ops import prologue, tile_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = loader.load_micromesh(_save_config3(tmp))
+    scene = scene_mod.build_device_scene(mesh, hierarchy=True,
+                                         device="cuda")
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    ivps = np.stack([_camera(25.0 + 360.0 / ORBIT_FRAMES * k, cfg)
+                     for k in range(ORBIT_FRAMES)])
+    tile_trace.render_frames(scene, ivps, cfg)
+    torch.cuda.synchronize()
+    _reset_all()
+    busy = _profiled(lambda: tile_trace.render_frames(scene, ivps, cfg))
+    launches = {k: n for k, n in (*tile_trace.LAUNCHES.items(),
+                                  *prologue.LAUNCHES.items()) if n}
+    print(json.dumps({"busy": busy, "launches": launches}))
+
+
 def phase_stats(card, scene, ivp, ivps, cfg):
     """The stats path at 1080p: heatmap, FrameStats, the kernel's visits,
-    and a profiler trace of one orbit, counted."""
+    counted, and a profiler trace of one orbit in a process of its own
+    (_stats_orbit_child), counted there."""
     from rtmm_tpu_torch.ops import tile_trace
     from rtmm_tpu_torch.utils import stats
 
@@ -2358,16 +2705,32 @@ def phase_stats(card, scene, ivp, ivps, cfg):
     _img, kst = tile_trace.render_frame(scene, ivp, cfg, with_stats=True)
     visits = int(kst["kernel_unit_visits"].sum())
     eligible = int(kst["kernel_unit_eligible"].sum())
-    busy = _profiled(lambda: tile_trace.render_frames(scene, ivps, cfg))
     torch.cuda.synchronize()
-    _expect_launches("stats path", {"tile_trace_fused": 4})
+    _expect_launches("stats path", {"tile_trace_fused": 3,
+                                    **_prologue(3, 3)})
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._stats_orbit_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the profiled orbit's process failed (rc "
+                           f"{proc.returncode}): {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    busy = child["busy"]
+    _log(f"[stats profiler launches] {child['launches']}")
+    if child["launches"] != {"tile_trace_fused": 1, "tile_frusta": 1,
+                             "cluster_select": 1}:
+        raise RuntimeError(f"the profiled orbit launched "
+                           f"{child['launches']}")
     _log(f"[stats] heatmap {hm.shape} in {hm_s:.1f} s: {int(hm.sum())} "
          f"steps, max {int(hm.max())} per ray, "
          f"{int((hm > 0).sum())} pixels with work; FrameStats "
          f"{fs.as_dict()}; kernel visits {visits} of {eligible} eligible "
          f"(pin {EXPECTED_VISITS}, bench.py:264)")
     _log(f"[stats profiler] {card}: one {ORBIT_FRAMES}-frame orbit "
-         f"(render_frames): {busy['kernels']} kernel events, device busy "
+         f"(render_frames): {busy['kernels']} kernel events of "
+         f"{busy['launch_calls']} launch calls, device busy "
          f"{busy['busy_us'] / 1e3:.4f} ms of a {busy['window_us'] / 1e3:.4f} "
          f"ms traced window: busy share {busy['share']}")
     if hm.shape != (cfg.height, cfg.width) or not hm.max() > 0:
@@ -2407,7 +2770,8 @@ def phase_perray_engine(card, mesh5):
     _expect_launches("pallas engine", {"tile_trace_raw": 1,
                                        "group_trace": None,
                                        "pt_spawn": 2 * PT_BOUNCES,
-                                       "pt_shade": 2 * (PT_BOUNCES + 1)})
+                                       "pt_shade": 2 * (PT_BOUNCES + 1),
+                                       **_prologue(1, 2)})
     gate = _pt_gate(a, b)
     dlive = float((sa["live_rays_per_bounce"]
                    - sb["live_rays_per_bounce"]).abs().max())
@@ -2444,7 +2808,7 @@ def phase_debug_cache(card, scene, img_main, ivp, cfg):
         caught = str(exc)
     else:
         raise RuntimeError("debug_render missed a NaN in leaf_verts")
-    _expect_launches("debug render", {})
+    _expect_launches("debug render", {})   # no kernel, prologue's neither
     gate = image_gate(img, img_main)
     _log(f"[debug] clean config 3 at 1080p passes in {ms:.1f} ms (host "
          f"clock; tile backend with guards), against phase 3's K1a frame: "
@@ -2474,7 +2838,8 @@ def phase_debug_cache(card, scene, img_main, ivp, cfg):
         img_c = tile_trace.render_frame(s2, ivp, cfg)
         Viewer(Renderer(s2, cfg))._run_orbit(2, f"{tmp}/view")
         torch.cuda.synchronize()
-        _expect_launches("cache and viewer", {"tile_trace_fused": 3})
+        _expect_launches("cache and viewer", {"tile_trace_fused": 3,
+                                              **_prologue(3, 3)})
         views = _png_frames(f"{tmp}/view", 2, "view")
     _log(f"[cache] build {ms1:.1f} ms (asset reads {len(reads)}), then "
          f"{ms2:.1f} ms from {files}; tables bit-equal: {same}; K1a frame "
@@ -2548,8 +2913,10 @@ def _md_layout(card, name, results, backend, chosen, single_ms,
     """Check every rank ran over `backend`, chose `chosen` and returned
     the same frame, and that `kernel` launched once per window of each rank's walk (on every
     rank, unless every_rank is False: a rank whose tiles hit no cluster
-    walks no window); log the layout's times, launches and per-rank scene
-    MiB. Returns its record for the kernel table."""
+    walks no window), beside one tile_frusta and 1 + windows
+    cluster_select per rank; with no `kernel`, that no kernel launched,
+    the prologue's neither. Log the layout's times, launches and per-rank
+    scene MiB. Returns its record for the kernel table."""
     for r in results:
         if (r["backend"], r["chosen"]) != (backend, chosen):
             raise RuntimeError(f"{name}: rank {r['rank']} ran over "
@@ -2566,6 +2933,14 @@ def _md_layout(card, name, results, backend, chosen, single_ms,
             or (windows and windows != launches)):
         raise RuntimeError(f"{name}: {kernel} launches per rank "
                            f"{launches}, windows {windows}")
+    # Each rank's prologue: one tile_frusta for its tile range, one
+    # cluster_select for its cull and one per window.
+    prologue = [(r["launches"].get("tile_frusta", 0),
+                 r["launches"].get("cluster_select", 0)) for r in results]
+    if kernel is not None and prologue != [(1, 1 + n) for n in launches]:
+        raise RuntimeError(f"{name}: (tile_frusta, cluster_select) "
+                           f"launches per rank {prologue}, {kernel} "
+                           f"{launches}")
     if kernel is None and any(r["launches"] for r in results):
         raise RuntimeError(f"{name}: trace kernels launched: "
                            f"{[r['launches'] for r in results]}")
@@ -2575,7 +2950,8 @@ def _md_layout(card, name, results, backend, chosen, single_ms,
     _log(f"[{name} time] {card}: {backend}{shared}: ms per frame, CUDA "
          f"events per rank {[round(m, 4) for m in ms]}, host clock on rank "
          f"0 {results[0]['ms_wall']:.4f}; single card {single_ms:.4f}; "
-         + (f"{kernel} launches per rank {launches}; " if kernel else "")
+         + (f"{kernel} launches per rank {launches}, (tile_frusta, "
+            f"cluster_select) {prologue}; " if kernel else "")
          + "scene MiB per rank "
          f"{[round(r['shard_bytes'] / 2**20, 2) for r in results]}")
     return {"backend": backend, "ranks_share_one_card": shares,
@@ -2722,11 +3098,15 @@ def phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels):
     dry = entry.dryrun_multichip(4, device=dev.type,
                                  timeout_s=MD_TIMEOUT_S)
     dry_launches = [r["launches"].get(k1b, 0) for r in dry]
+    dry_prologue = [(r["launches"].get("tile_frusta", 0),
+                     r["launches"].get("cluster_select", 0)) for r in dry]
     _log(f"[multi-device dryrun_multichip(4)] {time.perf_counter() - t0:.1f}"
          f" s; meshes {[r['mesh'] for r in dry]}; {k1b} launches per rank "
-         f"{dry_launches}")
-    if min(dry_launches) == 0:
-        raise RuntimeError("dryrun_multichip(4): a rank launched no K1b")
+         f"{dry_launches}, (tile_frusta, cluster_select) {dry_prologue}")
+    if min(dry_launches) == 0 or dry_prologue != [
+            (1, 1 + n) for n in dry_launches]:
+        raise RuntimeError("dryrun_multichip(4): a rank launched no K1b, "
+                           "or not its prologue kernels once per window")
 
     next(k for k in kernels if k["name"] == k1b)["sharded"] = sharded
     next(k for k in kernels if k["name"] == k1bc)["sharded"] = sharded_c
@@ -2743,9 +3123,12 @@ BENCH_TIMEOUT_S = 300
 # Launches of each stage of the default row: config 3's 32-frame orbit is
 # 32 x 2,040 tiles, one batched launch per call (a warm-up and 4 timed);
 # the visit count and the verify's kernel frame one each.
-BENCH_LAUNCHES_3 = {"orbit": {"tile_trace_fused": 5},
-                    "visits": {"tile_trace_fused": 1},
-                    "verify": {"tile_trace_fused": 1}}
+BENCH_LAUNCHES_3 = {"orbit": {"tile_trace_fused": 5, "tile_frusta": 5,
+                              "cluster_select": 5},
+                    "visits": {"tile_trace_fused": 1, "tile_frusta": 1,
+                               "cluster_select": 1},
+                    "verify": {"tile_trace_fused": 1, "tile_frusta": 1,
+                               "cluster_select": 1}}
 
 
 def _bench_checks(name, row, kind):
@@ -2791,10 +3174,13 @@ def phase_bench():
         if launches.get(stage) != want:
             raise RuntimeError(f"bench config 3 {stage}: launches "
                                f"{launches.get(stage)}, expected {want}")
-    for n, kind, kernels in ((8, "instanced", ("tile_trace_raw",)),
+    for n, kind, kernels in ((8, "instanced", ("tile_trace_raw",
+                                               "tile_frusta",
+                                               "cluster_select")),
                              (5, "pathtrace", ("tile_trace_raw",
                                                "group_trace", "pt_spawn",
-                                               "pt_shade"))):
+                                               "pt_shade", "tile_frusta",
+                                               "cluster_select"))):
         t0 = time.perf_counter()
         _reset_all()
         stages = bench._Stages("cuda")
@@ -2822,10 +3208,12 @@ def main() -> int:
     from rtmm_tpu_torch.render.renderer import FramePipeline, Renderer
     from rtmm_tpu_torch.utils.gate import image_gate
 
-    def counted(kernel: str) -> int:
-        """Launches of `kernel` since the last reset; every other kernel
-        must not have launched."""
-        return _expect_launches(kernel, {kernel: None})[kernel]
+    def counted(kernel: str, frusta: int = 0, select: int = 0) -> int:
+        """Launches of `kernel` since the last reset, beside `frusta`
+        tile_frusta and `select` cluster_select launches; every other
+        kernel must not have launched."""
+        return _expect_launches(kernel, {kernel: None,
+                                         **_prologue(frusta, select)})[kernel]
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -2869,7 +3257,7 @@ def main() -> int:
                      for k in range(ORBIT_FRAMES)])
 
     # -- 3. main path (counted launches) ---------------------------------
-    tile_trace.reset_launches()
+    _reset_all()
     img_main, stats = tile_trace.render_frame(scene, ivp, cfg,
                                               with_stats=True)
     orbit = tile_trace.render_frames(scene, ivps, cfg)
@@ -2883,9 +3271,12 @@ def main() -> int:
             piped.append(done)
     piped += list(pipe.drain())
     torch.cuda.synchronize()
-    launches = counted("tile_trace_fused")
+    launches = counted("tile_trace_fused", 7, 7)
+    main_prologue = _expect_launches("main path", {
+        "tile_trace_fused": 7, **_prologue(7, 7)})
     _log(f"[main path] launches of tile_trace: {launches} (1 frame + "
-         f"1 orbit of {ORBIT_FRAMES} + 2 render_u8 + 3 pipelined)")
+         f"1 orbit of {ORBIT_FRAMES} + 2 render_u8 + 3 pipelined), of "
+         f"tile_frusta and cluster_select one each per launch")
     if launches != 7:
         raise RuntimeError(f"expected 7 kernel launches, counted {launches}")
     for name, arr in (("frame", img_main), ("orbit", orbit)):
@@ -3001,6 +3392,9 @@ def main() -> int:
     kernels[0]["batched_prologue"] = phase_batched_prologue(
         card, {"config 3": scene, "config 9": scene9, "config 6": scene6},
         cfg)
+    # -- 6c. the prologue kernels against their plain versions -------------
+    phase_prologue_kernels(card, {"config 3": scene, "config 6": scene6},
+                           cfg)
     del scene6
     # -- 7. windowed walks (K1b) ---------------------------------------------
     kernels.append(phase_windowed3(card, scene, ivp, cfg, counted, img_main,
@@ -3054,6 +3448,7 @@ def main() -> int:
     phase_multidevice(card, scene, ivp, cfg, scene9, arrays_h, kernels)
     # -- 21. the port's benchmark -------------------------------------------
     phase_bench()
+    kernels.extend(_prologue_entries(main_prologue))
     _log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

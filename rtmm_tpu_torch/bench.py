@@ -79,7 +79,7 @@ import torch
 from .config import RenderConfig
 from .io import loader
 from .models import procedural, scene as scene_mod
-from .ops import group_trace, path_shade, tile_trace
+from .ops import group_trace, path_shade, prologue, tile_trace
 from .render import instances as inst_mod
 from .render.pathtrace import PathTraceConfig, PathTracer
 from .render.renderer import _quantize, render_image
@@ -485,7 +485,8 @@ def _verify_pathtrace(scene, cfg: RenderConfig) -> dict:
 
 def _launches() -> dict:
     return {k: v for k, v in {**tile_trace.LAUNCHES, **group_trace.LAUNCHES,
-                              **path_shade.LAUNCHES}.items() if v}
+                              **path_shade.LAUNCHES,
+                              **prologue.LAUNCHES}.items() if v}
 
 
 class _Stages:
@@ -629,6 +630,7 @@ def main(argv=None) -> int:
     tile_trace.reset_launches()
     group_trace.reset_launches()
     path_shade.reset_launches()
+    prologue.reset_launches()
     stages = _Stages(args.device)
     code = 0
     try:

@@ -55,7 +55,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from . import _f32, compressed, culling, shading, tiled
+from . import _f32, compressed, culling, prologue, shading, tiled
 from .intersect import MT_UV_EPS
 
 BIG = 1e30
@@ -783,8 +783,10 @@ def cluster_lists(scene: DeviceScene, fi: tiled.FrameInputs, kc: int):
     frustum hits, exactly jax.lax.top_k's: ascending apex distance, ties
     to the lower cluster index, centry = +inf past ccount. Returns (ccand
     (tiles, kc) int32, ccount (tiles,) int32, centry (tiles, kc) f32),
-    with a leading frame axis when fi is batched."""
-    return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc)[:3]
+    with a leading frame axis when fi is batched. One cluster_select
+    launch on the card."""
+    return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc,
+                                window=False)[:3]
 
 
 def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
@@ -794,18 +796,24 @@ def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
     the ops it runs do not grow with F. inv_view_projs is (F, 4, 4).
     Returns (ccand (F*tiles, kc) int32, ccount (F*tiles,) int32, centry
     (F*tiles, kc) f32, frus (F*tiles, pack) f32), frame-major: frame f's
-    rows are f*tiles .. (f+1)*tiles - 1, bit for bit frame_inputs'."""
-    pw, _ = tiled.padded_size(cfg.width, cfg.height)
+    rows are f*tiles .. (f+1)*tiles - 1, bit for bit frame_inputs'.
+    Two kernel launches on the card: tile_frusta (the frusta and the
+    pack) and cluster_select (the cull and the lists)."""
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
     ivps = torch.as_tensor(inv_view_projs, dtype=torch.float32,
                            device=scene.device)
     if ivps.dim() != 3 or ivps.shape[1:] != (4, 4):
         raise ValueError(f"inv_view_projs must be (F, 4, 4), not "
                          f"{tuple(ivps.shape)}")
-    fi = tiled.build_frame_inputs(scene, ivps, cfg, need_rays=False)
-    frus = tiled.frustum_scalars(fi, raygen_ivp=ivps,
-                                 tx=pw // culling.TILE_W)
-    return tuple(x.flatten(0, 1)
-                 for x in (*cluster_lists(scene, fi, kc), frus))
+    fr = prologue.tile_frusta(ivps, cfg.width, cfg.height, pw, ph,
+                              cfg.sub_frusta, cfg.sub_rows, pack="raygen",
+                              scene_aabb=scene.exit_aabb)
+    n_tiles = fr.normals.shape[1]
+    sel = prologue.cluster_select(
+        fr.apex, fr.normals.reshape(-1, 4, 3), scene.cluster_aabb_min,
+        scene.cluster_aabb_max, scene.cluster_valid, kc,
+        rows_per_apex=n_tiles)
+    return sel.ccand, sel.ccount, sel.centry, fr.frus.flatten(0, 1)
 
 
 def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
@@ -822,9 +830,9 @@ def ray_frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig):
     scalars, raymat (tiles, 8, TILE) rows [d, a x d, s, 1])."""
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
                           device=scene.device)
-    fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True)
-    return (fi, tiled.frustum_scalars(fi),
-            fi.raymat.transpose(1, 2).contiguous())
+    fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True,
+                                  kernels=True)
+    return fi, fi.frus, fi.raymat.transpose(1, 2).contiguous()
 
 
 def _launch(scene, cfg, rows, raymat=None):

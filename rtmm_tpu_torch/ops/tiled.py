@@ -35,7 +35,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
-from . import _f32, compressed, culling, intersect, raygen, shading
+from . import _f32, compressed, culling, intersect, prologue, raygen, shading
 
 BIG = 1e30
 TILE = culling.TILE_H * culling.TILE_W
@@ -69,6 +69,9 @@ class FrameInputs(NamedTuple):
     # scenes (trace_candidate derives the table per candidate).
     q_frame: torch.Tensor | None = None
     t_num: torch.Tensor | None = None
+    # The kernel paths' per-tile scalar pack without raygen scalars
+    # (frustum_scalars(fi)), built with the frusta (kernels=True).
+    frus: torch.Tensor | None = None
 
 
 def scene_exit_aabb(scene: DeviceScene) -> torch.Tensor:
@@ -112,7 +115,8 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
                        cfg: RenderConfig,
                        need_rays: bool = True,
                        need_q_frame: bool = False,
-                       tiles: tuple[int, int] | None = None) -> FrameInputs:
+                       tiles: tuple[int, int] | None = None,
+                       kernels: bool = False) -> FrameInputs:
     """Raygen + the coarse (cluster-level) cull, on the scene's device.
 
     need_rays=False skips raygen and the ray-matrix build (raymat/dirs
@@ -131,6 +135,12 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
     package's jax.vmap of it does (render_pallas_frames): every field
     but scene_aabb gains a leading frame axis, each frame's values bit for
     bit its own call's. Rays and q_frame are built for one frame only.
+
+    kernels=True builds the frusta, the pack (fi.frus) and the cluster
+    cull with the prologue kernels (ops/prologue.py: tile_frusta,
+    cluster_select), the trace kernel paths' prologue; False with their
+    plain versions and no pack, as the XLA tile backend does. Both give
+    the same values.
     """
     dev = scene.device
     width, height = cfg.width, cfg.height
@@ -142,16 +152,18 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
         raise ValueError("rays and q_frame are built for one frame: pass "
                          f"one (4, 4) inv_view_proj, not {tuple(m.shape)}")
 
-    apex, normals = culling.tile_frustums(m, width, height, pw, ph,
-                                          device=dev)
-    sub_normals = culling.tile_sub_frustums(m, width, height, pw, ph,
-                                            n_sub=cfg.sub_frusta,
-                                            n_rows=cfg.sub_rows, device=dev)
-    normals = normals.narrow(-3, tile0, n_tiles)
-    sub_normals = sub_normals.narrow(-4, tile0, n_tiles)
-    cluster_hit = culling.cull_units(apex, normals, scene.cluster_aabb_min,
-                                     scene.cluster_aabb_max,
-                                     scene.cluster_valid)
+    frusta, select = ((prologue.tile_frusta, prologue.cluster_select)
+                      if kernels else (prologue.tile_frusta_plain,
+                                       prologue.cluster_select_plain))
+    apex, normals, sub_normals, frus = frusta(
+        m, width, height, pw, ph, cfg.sub_frusta, cfg.sub_rows,
+        tiles=(tile0, n_tiles), pack="plain" if kernels else None,
+        scene_aabb=scene.exit_aabb)
+    cluster_hit = select(
+        apex.reshape(-1, 3), normals.reshape(-1, 4, 3),
+        scene.cluster_aabb_min, scene.cluster_aabb_max, scene.cluster_valid,
+        0, rows_per_apex=n_tiles, want_hit=True).hit.reshape(
+            *normals.shape[:-2], scene.num_clusters)
 
     raymat = dirs = None
     if need_rays:
@@ -184,7 +196,7 @@ def build_frame_inputs(scene: DeviceScene, inv_view_proj,
         q_frame = scene.unit_qn.clone()
         q_frame[:, 7, 3 * lpu:4 * lpu] = t_num
     return FrameInputs(raymat, dirs, apex, normals, cluster_hit,
-                       sub_normals, scene.exit_aabb, q_frame, t_num)
+                       sub_normals, scene.exit_aabb, q_frame, t_num, frus)
 
 
 def frustum_pack_len(n_sub: int, with_raygen: bool = False,
@@ -277,22 +289,30 @@ def _select_nearest_clusters(cl_dist: torch.Tensor, remaining: torch.Tensor,
 
 
 def cluster_window(scene: DeviceScene, apex: torch.Tensor,
-                   remaining: torch.Tensor, kc: int):
+                   remaining: torch.Tensor, kc: int, window: bool = True):
     """Cluster-level window: the kc nearest remaining clusters per tile,
     front-to-back, for the kernel's in-kernel unit walk. apex (3,) with
     remaining (tiles, C), or apex (F, 3) with remaining (F, tiles, C) for
     F frames in one pass (each frame's rows bit for bit its own call's).
+    One cluster_select launch (ops/prologue.py) on the card.
 
     Returns (ccand (..., tiles, kc) int32, ccount (..., tiles) int32,
     centry (..., tiles, kc) f32 ascending with +inf tail, new_remaining,
-    next_bound (..., tiles))."""
-    cl_dist = culling.aabb_distance(apex[..., None, :],
-                                    scene.cluster_aabb_min,
-                                    scene.cluster_aabb_max)   # (..., C)
-    cidx, sel, skey, new_remaining, next_bound = _select_nearest_clusters(
-        cl_dist[..., None, :], remaining, kc)
-    return (cidx.contiguous(), sel.sum(dim=-1).to(torch.int32),
-            skey.contiguous(), new_remaining, next_bound)
+    next_bound (..., tiles)); window=False leaves the last two None (the
+    lists alone, as top_k gives them)."""
+    apex = apex.reshape(-1, 3)
+    lead, n_cl = remaining.shape[:-1], remaining.shape[-1]
+    sel = prologue.cluster_select(
+        apex, None, scene.cluster_aabb_min, scene.cluster_aabb_max, None,
+        kc, remaining=remaining.reshape(-1, n_cl),
+        rows_per_apex=lead.numel() // apex.shape[0], window=window)
+    k = sel.ccand.shape[-1]
+    new_remaining = next_bound = None
+    if window:
+        new_remaining = sel.new_remaining.reshape(remaining.shape)
+        next_bound = sel.next_bound.reshape(lead)
+    return (sel.ccand.reshape(*lead, k), sel.ccount.reshape(lead),
+            sel.centry.reshape(*lead, k), new_remaining, next_bound)
 
 
 def trace_windowed_clusters(scene: DeviceScene, fi: FrameInputs,

@@ -327,13 +327,14 @@ def _tiled_frame(shard: DeviceScene, ivp, cfg: RenderConfig, mesh: Mesh,
     # clusters, with the shard's exit box.
     fi = tiled.build_frame_inputs(shard, ivp, cfg,
                                   need_q_frame=backend == "xla",
-                                  tiles=(tile0, n_local))
+                                  tiles=(tile0, n_local),
+                                  kernels=backend == "pallas")
     stats = {"tile0": tile0}
     if backend == "pallas":
         # The windowed trace kernel on this shard: its cluster cull, exit
         # box and window capacity are the shard's own, and the cluster
         # indices it walks are shard-local, as are the tables it reads.
-        frus = tiled.frustum_scalars(fi)
+        frus = fi.frus
         raymat = fi.raymat.transpose(1, 2).contiguous()
         kc = tile_trace.clusters_per_window(shard, cfg)
         best_t, n, visits, _, windows = tile_trace.trace_windows(

@@ -45,7 +45,7 @@ import torch
 from ..config import RenderConfig
 from ..models import scene as scene_mod
 from ..models.scene import DeviceScene
-from ..ops import _f32, culling, raygen, shading, tile_trace, tiled
+from ..ops import _f32, culling, prologue, raygen, shading, tile_trace, tiled
 from ..ops.culling import UNITS_PER_CLUSTER
 from .renderer import _quantize
 
@@ -387,14 +387,14 @@ class WorldFrame(NamedTuple):
 
 
 def world_frame(inv_view_proj, cfg: RenderConfig, device) -> WorldFrame:
+    """The frame's world-space rays and frusta (one tile_frusta launch on
+    the card)."""
     width, height = cfg.width, cfg.height
     pw, ph = tiled.padded_size(width, height)
     tx, ty = pw // culling.TILE_W, ph // culling.TILE_H
-    apex, normals = culling.tile_frustums(inv_view_proj, width, height,
-                                          pw, ph, device=device)
-    sub_normals = culling.tile_sub_frustums(
-        inv_view_proj, width, height, pw, ph, n_sub=cfg.sub_frusta,
-        n_rows=cfg.sub_rows, device=device)
+    apex, normals, sub_normals, _ = prologue.tile_frusta(
+        torch.as_tensor(inv_view_proj, dtype=torch.float32, device=device),
+        width, height, pw, ph, cfg.sub_frusta, cfg.sub_rows)
     origins, dirs = raygen.generate_rays(inv_view_proj, width, height,
                                          pw, ph, device=device)
 
@@ -473,14 +473,19 @@ class MergedLaunch(NamedTuple):
 
 def instance_cull(scene: DeviceScene, rot, trn, scl, world: WorldFrame):
     """Per-instance object-space camera + coarse cull, the only O(N x
-    tiles) stage of the merged path. Returns (inv_s (N,), apex_o (N, 3),
-    cluster_hit (N, tiles, C) bool)."""
+    tiles) stage of the merged path: one cluster_select launch over the
+    (instance, tile) rows that keeps only whether each row sees a cluster
+    (no (N, tiles, C) mask). Returns (inv_s (N,), apex_o (N, 3), normals_o
+    (N, tiles, 4, 3), tile_sees (N, tiles) bool)."""
     inv_s = _f32.rdiv(1.0, scl)
     apex_o = _rot_t(rot, world.apex - trn) * inv_s[:, None]
     normals_o = _rot_t(rot[:, None, None], world.normals[None])
-    return inv_s, apex_o, culling.cull_units(
-        apex_o, normals_o, scene.cluster_aabb_min, scene.cluster_aabb_max,
-        scene.cluster_valid)
+    n_inst, n_tiles = normals_o.shape[:2]
+    tile_sees = prologue.cluster_select(
+        apex_o, normals_o.reshape(-1, 4, 3), scene.cluster_aabb_min,
+        scene.cluster_aabb_max, scene.cluster_valid, 0,
+        rows_per_apex=n_tiles, want_any=True).any
+    return inv_s, apex_o, normals_o, tile_sees.reshape(n_inst, n_tiles)
 
 
 def merged_launch_inputs(scene: DeviceScene, rot, trn, scl, ivp,
@@ -497,9 +502,10 @@ def merged_launch_inputs(scene: DeviceScene, rot, trn, scl, ivp,
     rows = _row_budget(cfg, n_tiles, n_inst)
     exit_aabb = tiled.scene_exit_aabb(scene)
 
-    inv_s, apex_o, cluster_hit = instance_cull(scene, rot, trn, scl, world)
+    inv_s, apex_o, normals_o, tile_sees = instance_cull(scene, rot, trn,
+                                                        scl, world)
     row_inst, row_tile, row_valid, n_seen, overflow = assign_rows(
-        cluster_hit.any(dim=2), rows)
+        tile_sees, rows)
 
     row_rot = rot[row_inst]                               # (rows, 3, 3)
     row_apex = apex_o[row_inst]                           # (rows, 3)
@@ -536,16 +542,15 @@ def merged_launch_inputs(scene: DeviceScene, rot, trn, scl, ivp,
     frus = torch.cat(parts, dim=1).contiguous()
 
     # Per-row front-to-back cluster lists, in top_k's (distance, index)
-    # order (a stable sort, never torch.topk).
-    cl_dist = culling.aabb_distance(
-        apex_o[:, None, :], scene.cluster_aabb_min,
-        scene.cluster_aabb_max)                           # (N, C)
-    row_hit = cluster_hit[row_inst, row_tile] & row_valid[:, None]
-    cidx, csel, centry, _, _ = tiled._select_nearest_clusters(
-        cl_dist[row_inst], row_hit, kc)
-    return MergedLaunch(cidx.contiguous(), csel.sum(dim=1).to(torch.int32),
-                        centry.contiguous(), frus, raymat, row_inst,
-                        row_tile, row_valid, n_seen, overflow)
+    # order (never torch.topk): one cluster_select launch that culls each
+    # row again against its instance's object-space planes, as
+    # instance_cull culled it.
+    sel = prologue.cluster_select(
+        row_apex, normals_o[row_inst, row_tile], scene.cluster_aabb_min,
+        scene.cluster_aabb_max, scene.cluster_valid, kc,
+        row_valid=row_valid)
+    return MergedLaunch(sel.ccand, sel.ccount, sel.centry, frus, raymat,
+                        row_inst, row_tile, row_valid, n_seen, overflow)
 
 
 def combine_rows(out: torch.Tensor, launch: MergedLaunch, rot, scl,
@@ -632,11 +637,12 @@ def _object_camera(scene, r, t, s, world: WorldFrame) -> _ObjectCamera:
     inv_s = _f32.rdiv(1.0, s)
     apex_o = _rot_t(r, world.apex - t) * inv_s
     normals_o = _rot_t(r, world.normals)
-    return _ObjectCamera(
-        apex_o, normals_o, _rot_t(r, world.sub_normals),
-        culling.cull_units(apex_o, normals_o, scene.cluster_aabb_min,
-                           scene.cluster_aabb_max, scene.cluster_valid),
-        inv_s)
+    hit = prologue.cluster_select(
+        apex_o[None], normals_o, scene.cluster_aabb_min,
+        scene.cluster_aabb_max, scene.cluster_valid, 0,
+        rows_per_apex=normals_o.shape[0], want_hit=True).hit
+    return _ObjectCamera(apex_o, normals_o, _rot_t(r, world.sub_normals),
+                         hit, inv_s)
 
 
 def _trace_instance(scene, cam: _ObjectCamera, r, s, best_t, best_n,

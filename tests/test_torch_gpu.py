@@ -5,7 +5,10 @@ sources) and the instanced frames built on it; the grouped trace (K2) on
 random ray groups over precomputed, compressed and compressed indexed
 scenes, and path-traced frames through both secondary engines; the
 path tracer's bounce kernels pt_spawn / pt_shade against their plain
-versions, per call and over whole frames; the
+versions, per call and over whole frames; the prologue kernels
+tile_frusta / cluster_select against their plain versions, bit for bit,
+with their launch counts, and every prologue path on the card kept off
+the plain versions; the
 per-ray reference backend on the card against the CPU, the perray engine
 against the pallas engine, and the debug render's NaN check.
 
@@ -23,7 +26,8 @@ import torch
 
 from rtmm_tpu_torch.config import RenderConfig
 from rtmm_tpu_torch.models import procedural, scene as scene_mod
-from rtmm_tpu_torch.ops import culling, group_trace, tiled, tile_trace
+from rtmm_tpu_torch.ops import (culling, group_trace, prologue, tiled,
+                                tile_trace)
 from rtmm_tpu_torch.render import instances as inst_mod
 from rtmm_tpu_torch.render import pathtrace
 from rtmm_tpu_torch.render.renderer import Renderer
@@ -708,7 +712,11 @@ def test_sharded_trace_matches_single_card(cuda, shape, backend):
         # ranks that share a card (the ids name the one-card case).
         assert r["backend"] == launch.choose_backend(len(results), "cuda")
         assert r["chosen"] == ("tile-sharded", "pallas")
-        assert r["launches"] == {"tile_trace_windowed": tr["windows"]}
+        # Per window one trace launch and one cluster_select, beside the
+        # rank's tile_frusta and the cull's cluster_select.
+        assert r["launches"] == {"tile_trace_windowed": tr["windows"],
+                                 "tile_frusta": 1,
+                                 "cluster_select": 1 + tr["windows"]}
         assert tr["windows"] >= 2
         np.testing.assert_array_equal(tr["t"], t0[rows])
         np.testing.assert_array_equal(tr["n"], n0[rows])
@@ -739,6 +747,233 @@ def test_bench_row_on_card(cuda, capsys):
     launches = json.loads(next(
         line for line in out.err.splitlines()
         if line.startswith("[bench launches] "))[len("[bench launches] "):])
-    # 256 frames of 64 tiles in one launch per call: warm-up + 4 calls.
-    assert launches["orbit"] == {"tile_trace_fused": 5}
-    assert launches["visits"] == {"tile_trace_fused": 1}
+    # 256 frames of 64 tiles in one launch per call: warm-up + 4 calls,
+    # each with its prologue's tile_frusta and cluster_select launch.
+    once = {"tile_frusta": 1, "cluster_select": 1}
+    assert launches["orbit"] == {"tile_trace_fused": 5,
+                                 **{k: 5 for k in once}}
+    assert launches["visits"] == {"tile_trace_fused": 1, **once}
+
+
+# ----------------------------------------------------------------------
+# The prologue kernels (csrc/prologue.cu) against their plain versions.
+
+def _bits_equal(a, b):
+    """Equal shapes, dtypes and bits (float32 compared as int32); None
+    matches None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _orbit(w, h, n, dist=3.0):
+    return np.stack([_ivp(w, h, 25.0 + 360.0 / n * k) for k in range(n)])
+
+
+@pytest.mark.parametrize("pack", [None, "plain", "raygen"])
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_tile_frusta_matches_plain(cuda, grid, pack):
+    """A 4-frame 1080p chunk (the padded grid at 100x80), every output
+    bit for bit; a tile range of the plain pack too."""
+    cfg, w, h = _grid_cfg(grid, 1920, 1080)
+    pw, ph = tiled.padded_size(w, h)
+    ivps = torch.as_tensor(_orbit(w, h, 4), dtype=torch.float32,
+                           device=cuda)
+    box = torch.tensor([-2.0, -2.0, -2.0, 2.0, 2.0, 2.0], device=cuda)
+    n_all = (pw // 32) * (ph // 32)
+    ranges = [None] + ([(3, n_all - 5)] if pack != "raygen" else [])
+    for tiles in ranges:
+        for m in (ivps, ivps[1]):
+            args = (m, w, h, pw, ph, cfg.sub_frusta, cfg.sub_rows)
+            kw = dict(tiles=tiles, pack=pack, scene_aabb=box)
+            before = prologue.LAUNCHES["tile_frusta"]
+            k = prologue.tile_frusta(*args, **kw)
+            torch.cuda.synchronize()
+            assert prologue.LAUNCHES["tile_frusta"] == before + 1
+            p = prologue.tile_frusta_plain(*args, **kw)
+            for a, b in zip(k, p):
+                assert _bits_equal(a, b)
+
+
+def _select_case(cuda, name):
+    """(scene, cfg, frames) of a cluster_select case: config 3's asset
+    (20 clusters) and config 6's plane (200 clusters) at 1080p."""
+    if name == "config3":
+        mesh = procedural.make_icosphere(subdivisions=3, level=3,
+                                         amplitude=0.12)
+    else:
+        mesh = procedural.make_plane(grid=(160, 160), level=2,
+                                     amplitude=0.05)
+    return (scene_mod.build_device_scene(mesh, device=cuda),
+            RenderConfig(width=1920, height=1080), 8)
+
+
+@pytest.mark.parametrize("name", ["config3", "config6"])
+def test_cluster_select_matches_plain_on_chunks(cuda, name):
+    """The fused chunk's cull + select, and frames_inputs' rows, bit for
+    bit against the plain versions."""
+    scene, cfg, n = _select_case(cuda, name)
+    pw, ph = tiled.padded_size(cfg.width, cfg.height)
+    ivps = torch.as_tensor(_orbit(cfg.width, cfg.height, n),
+                           dtype=torch.float32, device=cuda)
+    fr = prologue.tile_frusta(ivps, cfg.width, cfg.height, pw, ph,
+                              cfg.sub_frusta, cfg.sub_rows)
+    kc = tile_trace.clusters_per_window(scene, cfg)
+    args = (fr.apex, fr.normals.reshape(-1, 4, 3), scene.cluster_aabb_min,
+            scene.cluster_aabb_max, scene.cluster_valid, kc)
+    kw = dict(rows_per_apex=fr.normals.shape[1], want_hit=True,
+              want_any=True)
+    before = prologue.LAUNCHES["cluster_select"]
+    k = prologue.cluster_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert prologue.LAUNCHES["cluster_select"] == before + 1
+    p = prologue.cluster_select_plain(*args, **kw)
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert int(k.ccount.sum()) > 0 and int(k.ccount.max()) <= kc
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prologue, "tile_frusta", prologue.tile_frusta_plain)
+        mp.setattr(prologue, "cluster_select", prologue.cluster_select_plain)
+        want = tile_trace.frames_inputs(scene, ivps, cfg, kc)
+    got = tile_trace.frames_inputs(scene, ivps, cfg, kc)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+
+
+def test_cluster_select_windows_on_card(cuda):
+    """Two windows of config 7's construction cut to a 160x160 grid (800
+    clusters) in windows of 16: lists, masks and bounds bit for bit, and
+    more clusters surviving than a window takes."""
+    mesh = procedural.make_plane(grid=(160, 160), level=3, amplitude=0.05)
+    scene = scene_mod.build_device_scene(mesh, compressed=True, device=cuda)
+    cfg = RenderConfig(width=1920, height=1080,
+                       kernel_clusters_per_window=16)
+    fi, _, _ = tile_trace.ray_frame_inputs(scene, _ivp(1920, 1080), cfg)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prologue, "tile_frusta", prologue.tile_frusta_plain)
+        mp.setattr(prologue, "cluster_select", prologue.cluster_select_plain)
+        fi_p, _, _ = tile_trace.ray_frame_inputs(scene, _ivp(1920, 1080),
+                                                 cfg)
+    assert _bits_equal(fi.cluster_hit, fi_p.cluster_hit)
+    assert _bits_equal(fi.frus, fi_p.frus)
+    remaining = fi.cluster_hit
+    assert int(remaining.sum(dim=1).max()) > 16
+    for _ in range(2):
+        args = (fi.apex[None], None, scene.cluster_aabb_min,
+                scene.cluster_aabb_max, None, 16)
+        kw = dict(remaining=remaining, rows_per_apex=remaining.shape[0],
+                  window=True)
+        k = prologue.cluster_select(*args, **kw)
+        p = prologue.cluster_select_plain(*args, **kw)
+        for a, b in zip(k, p):
+            assert _bits_equal(a, b)
+        assert bool(torch.isfinite(k.next_bound).any())
+        remaining = k.new_remaining
+
+
+@pytest.mark.parametrize("kc", [7, 1500, 5000])
+def test_cluster_select_ties_and_chunks(cuda, kc):
+    """5,000 boxes on a lattice (many equal distances: ties go to the
+    lower index), lists longer than one sorted chunk (1,500 > 1,024) and
+    as long as the scene (5,000): the window form bit for bit."""
+    g = np.random.default_rng(3)
+    c = 5000
+    lo = np.round(g.uniform(-4, 4, (c, 3)) * 2) / 2
+    lo = torch.tensor(lo, dtype=torch.float32, device=cuda)
+    hi = lo + 0.25
+    apex = torch.tensor([[0.1, 0.3, -0.2], [2.0, 0.0, 0.5]], device=cuda)
+    remaining = torch.tensor(g.random((6, c)) < 0.7, device=cuda)
+    args = (apex, None, lo, hi, None, kc)
+    kw = dict(remaining=remaining, rows_per_apex=3, window=True)
+    k = prologue.cluster_select(*args, **kw)
+    p = prologue.cluster_select_plain(*args, **kw)
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    ties = k.centry[:, 1:] == k.centry[:, :-1]
+    assert kc == 7 or bool((ties & torch.isfinite(k.centry[:, 1:])).any())
+
+
+def test_instanced_rows_on_card(cuda):
+    """The merged launch's inputs (instance cull, row select) and the
+    serial path's cull bit for bit against the plain versions."""
+    scene = _scene(1, 3, cuda)
+    cfg = RenderConfig(width=480, height=288)
+    ivp = _ivp_far(480, 288)
+    rot, trn, scl = inst_mod.instance_tensors(RING * 4, cuda)
+
+    def inputs():
+        world = inst_mod.world_frame(ivp, cfg, cuda)
+        cam = inst_mod._object_camera(scene, rot[1], trn[1], scl[1], world)
+        return (*world, *inst_mod.merged_launch_inputs(
+            scene, rot, trn, scl, ivp, world, cfg), *cam)
+
+    prologue.reset_launches()
+    got = inputs()
+    torch.cuda.synchronize()
+    assert prologue.LAUNCHES == {"tile_frusta": 1, "cluster_select": 3}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prologue, "tile_frusta", prologue.tile_frusta_plain)
+        mp.setattr(prologue, "cluster_select", prologue.cluster_select_plain)
+        want = inputs()
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_reference_backends_launch_no_prologue_kernel(cuda):
+    """The XLA tile backend and the candidate counts, the references the
+    kernels' frames are held against, keep the plain prologue on the
+    card: no prologue kernel launches."""
+    scene = _scene(1, 3, cuda)
+    w, h = 256, 128
+    cfg = RenderConfig(width=w, height=h)
+    prologue.reset_launches()
+    img = tiled.render_tiled(scene, _ivp(w, h), cfg)
+    tiled.candidate_counts(scene, _ivp(w, h), cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all())
+    assert prologue.LAUNCHES == {"tile_frusta": 0, "cluster_select": 0}
+
+
+def test_prologue_paths_stay_off_the_plain_versions(cuda, monkeypatch):
+    """On the card every prologue path launches the kernels: the plain
+    versions raise if a CUDA tensor reaches them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain prologue")
+
+    monkeypatch.setattr(prologue, "tile_frusta_plain", refuse)
+    monkeypatch.setattr(prologue, "cluster_select_plain", refuse)
+    scene = _scene(1, 3, cuda)
+    w, h = 256, 128
+    prologue.reset_launches()
+    tile_trace.render_frames(scene, _orbit(w, h, 3), RenderConfig(
+        width=w, height=h))
+    assert prologue.LAUNCHES == {"tile_frusta": 1, "cluster_select": 1}
+    prologue.reset_launches()
+    _, st = tile_trace.render_frame(_scene(2, 3, cuda), _ivp(w, h),
+                                    RenderConfig(width=w, height=h,
+                                                 kernel_clusters_per_window=2),
+                                    with_stats=True)
+    assert st["windows"] > 1
+    assert prologue.LAUNCHES == {"tile_frusta": 1,
+                                 "cluster_select": 1 + st["windows"]}
+    prologue.reset_launches()
+    tile_trace.render_frame(scene, _ivp(w, h), RenderConfig(
+        width=w, height=h, kernel_raygen=False))
+    assert prologue.LAUNCHES == {"tile_frusta": 1, "cluster_select": 2}
+    prologue.reset_launches()
+    inst_mod.render_instanced(scene, RING, _ivp_far(w, h),
+                              RenderConfig(width=w, height=h))
+    assert prologue.LAUNCHES == {"tile_frusta": 1, "cluster_select": 2}
+    prologue.reset_launches()
+    inst_mod.render_instanced(scene, RING, _ivp_far(w, h),
+                              RenderConfig(width=w, height=h), serial=True)
+    assert prologue.LAUNCHES["tile_frusta"] == 1
+    assert prologue.LAUNCHES["cluster_select"] >= len(RING) + 1
+    with pytest.raises(ValueError):
+        prologue.cluster_select(torch.zeros((1, 3), device=cuda), None,
+                                scene.cluster_aabb_min,
+                                scene.cluster_aabb_max, None, 2)
