@@ -231,10 +231,11 @@ GRID_7_FULL = 707
 EXPECTED_VISITS_7 = 1041098
 # Unit visits config 7's plain check walks: its first window's most
 # visited tiles hold up to 256 clusters x 64 units = 16,384 visits each,
-# and the plain walk takes ~1.2 ms per visit on the card, so the check
-# takes the most visited tile and evenly spaced others within this budget
-# (~50 s) instead of the 16 most visited.
-PLAIN_VISITS_7 = 40000
+# and the plain walk takes 1.2-2.7 ms per visit on the card's hosts, so
+# the check takes the most visited tile (11,912 visits at the verify
+# camera) and evenly spaced others within this budget (~15-35 s) instead
+# of the 16 most visited.
+PLAIN_VISITS_7 = 12000
 # Bench configs 1, 2 and 11 (bench.py:75-86, :123-131): (icosphere
 # arguments, tessellated, width, height, visit pin bench.py:262-263,269).
 SMALL_CONFIGS = {
@@ -705,21 +706,48 @@ def _queued_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 # the denominator and its guard (5), s and t (8), the point (15): 178.
 # cluster_select, per (row, cluster) culled: the box relative to the apex
 # (6), per plane 3 selects, 3 products, 2 sums and a compare (4 x 9): 42;
-# per cluster a row holds (culled in, or remaining): its distance (3 + 3
-# subtractions, 3 maxima, 3 clamps, 3 products, 2 sums and a square root:
-# 18) and its window compare (3).
+# per (apex, cluster) of a list: its distance (3 + 3 subtractions, 3
+# maxima, 3 clamps, 3 products, 2 sums and a square root: 18), once per
+# apex, since a list's keys depend on the apex only; per cluster a window
+# row holds: its window compare (3).
 FRUSTA_OPS_CORNER, FRUSTA_OPS_PLANE, FRUSTA_OPS_CONE = 72, 18, 9
 FRUSTA_OPS_APEX = 178
-SELECT_OPS_CULL, SELECT_OPS_HELD = 42, 18 + 3
+SELECT_OPS_CULL, SELECT_OPS_DIST, SELECT_OPS_WINDOW = 42, 18, 3
 # name -> the kernel-vs-plain cases of each prologue kernel, in run order.
 PROLOGUE_CASES: dict = {"tile_frusta": {}, "cluster_select": {}}
+# Device ms per launch of each case before the kernels' redesign: the
+# kernels of commit 8415cf6, the mean of two runs of `python3
+# tools/prologue_ab.py` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6), printed beside this run's.
+PROLOGUE_MS_BEFORE = {
+    "tile_frusta": {
+        "config 3 chunk": 0.120283,
+        "config 6 chunk": 0.120254,
+        "config 7": 0.005965,
+        "config 8": 0.005772,
+        "config 5 primary": 0.004341,
+    },
+    "cluster_select": {
+        "config 3 chunk": 0.087637,
+        "config 6 chunk": 0.866224,
+        "config 7 cull": 0.13134,
+        "config 7 window 1": 0.508783,
+        "config 7 window 2": 0.506851,
+        "config 8 instance cull": 0.081329,
+        "config 8 rows": 0.00467,
+        "config 5 primary cull": 0.003001,
+        "config 5 primary lists": 0.004394,
+    },
+}
 
 
 def _prologue_bound(kind, args, kw, out, held) -> tuple[float, str, str]:
     """Least time of one prologue launch on these inputs: its bytes (each
     input read once, each output written once) over the HBM rate, or its
     float32 operations over the fp32 peak, the larger; `held` is the
-    (row, cluster) pairs the rows hold (the distances the lists need)."""
+    (row, cluster) pairs the rows hold. A list needs each cluster's
+    distance once per apex (its keys depend on the apex only), a window
+    one compare per held pair."""
     if kind == "tile_frusta":
         ivp, nsub, nrows = torch.as_tensor(args[0]), args[5], args[6]
         n_frames = ivp.numel() // 16
@@ -741,10 +769,14 @@ def _prologue_bound(kind, args, kw, out, held) -> tuple[float, str, str]:
             out.any if out.any is not None else out.hit).shape[0]
         n_cl = lo.shape[0]
         culled = rows * n_cl if kw.get("remaining") is None else 0
-        ops = culled * SELECT_OPS_CULL + held * SELECT_OPS_HELD
+        dists = apex.shape[0] * n_cl if out.ccount is not None else 0
+        compares = held if kw.get("window") else 0
+        ops = (culled * SELECT_OPS_CULL + dists * SELECT_OPS_DIST
+               + compares * SELECT_OPS_WINDOW)
         nbytes = (_nbytes(apex, planes, lo, hi, valid, kw.get("remaining"),
                           kw.get("row_valid")) + _nbytes(*out))
-        what = f"{rows} rows x {n_cl} clusters, {held} held"
+        what = (f"{rows} rows x {n_cl} clusters, {apex.shape[0]} apexes, "
+                f"{held} held")
     ops_ms = ops / PEAK_FP32 * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -794,6 +826,13 @@ def _prologue_case(card, case: str, kind: str, args, kw=None) -> dict:
          f"of it")
     res = {"ms": device_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+    before = PROLOGUE_MS_BEFORE[kind].get(case)
+    if before is not None:
+        _log(f"[prologue {kind} {case} vs before] {card}: {device_ms:.6f} "
+             f"ms per launch, {before:.6f} before the redesign "
+             f"({before / device_ms:.2f}x); at {bound_ms / device_ms:.3f} "
+             f"of the bound {bound_ms:.6f} ms ({by}), was "
+             f"{bound_ms / before:.3f}")
     PROLOGUE_CASES[kind][case] = res
     return res
 

@@ -27,6 +27,12 @@ a failed build or launch raises) and the plain version for CPU tensors.
 The plain versions compose the port's culling and tiled functions; the
 kernels do the same float32 operations in the same order, so the two
 agree bit for bit on the card.
+
+A list's (distance, index) keys depend on the row's apex only, so the
+kernel orders each apex's clusters once and every row of that apex takes
+its held clusters in that order (rows with an apex of their own, as the
+merged instanced rows, order per row); past select_capacity() clusters
+it selects per row instead (csrc/prologue.cu).
 """
 from __future__ import annotations
 
@@ -176,7 +182,14 @@ def _lib():
     err = lib.rtmm_prologue_error_string
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
-    return frusta, select, err
+    lib.rtmm_prologue_select_cap.restype = ci
+    return frusta, select, err, lib.rtmm_prologue_select_cap
+
+
+def select_capacity() -> int:
+    """The most clusters cluster_select orders in shared memory, once
+    per apex; past it, each row selects its own (builds the kernel)."""
+    return _lib()[3]()
 
 
 def _raise(rc: int, name: str, err) -> None:
@@ -258,7 +271,7 @@ def tile_frusta(inv_view_proj, width: int, height: int, pw: int, ph: int,
     else:
         pack_len = tiled.frustum_pack_len(n_sub, pack == "raygen")
         frus = empty(n_tiles, pack_len)
-    fn, _, err = _lib()
+    fn, _, err, _ = _lib()
     with torch.cuda.device(dev):
         rc = fn(mf.data_ptr(), n_frames, float(width), float(height),
                 float(pw), float(ph), pw // culling.TILE_W, tile0, n_tiles,
@@ -313,6 +326,8 @@ def cluster_select(apex, planes, aabb_min, aabb_max, valid, kc: int, *,
     apex, planes, remaining, row_valid = (
         None if x is None else x.contiguous()
         for x in (apex, planes, remaining, row_valid))
+    if planes is not None and planes.data_ptr() % 16:
+        planes = planes.clone()  # the kernel reads a row as 3 float4
     _check("apex", apex, torch.float32, (n_apex, 3))
     if planes is not None:
         _check("planes", planes, torch.float32, (n_rows, 4, 3))
@@ -341,7 +356,7 @@ def cluster_select(apex, planes, aabb_min, aabb_max, valid, kc: int, *,
     centry = empty((n_rows, kc), torch.float32, kc > 0)
     new_rem = empty((n_rows, n_cl), torch.bool, window)
     bound = empty((n_rows,), torch.float32, window)
-    _, fn, err = _lib()
+    _, fn, err, _ = _lib()
     with torch.cuda.device(dev):
         rc = fn(n_rows, n_cl, kc, apex.data_ptr(), rows_per_apex,
                 _ptr(planes), _ptr(remaining), _ptr(row_valid),

@@ -7,8 +7,10 @@ scenes, and path-traced frames through both secondary engines; the
 path tracer's bounce kernels pt_spawn / pt_shade against their plain
 versions, per call and over whole frames; the prologue kernels
 tile_frusta / cluster_select against their plain versions, bit for bit,
-with their launch counts, and every prologue path on the card kept off
-the plain versions; the
+with their launch counts (each list path: the warp's, the block's shared
+order, past its capacity; NaN, +inf and tied distances; an apex per row;
+tile ranges and every pack), and every prologue path on the card kept
+off the plain versions; the
 per-ray reference backend on the card against the CPU, the perray engine
 against the pallas engine, and the debug render's NaN check.
 
@@ -895,6 +897,149 @@ def test_cluster_select_ties_and_chunks(cuda, kc):
         assert _bits_equal(a, b)
     ties = k.centry[:, 1:] == k.centry[:, :-1]
     assert kc == 7 or bool((ties & torch.isfinite(k.centry[:, 1:])).any())
+
+
+def _special_boxes(g, c, dev):
+    """c boxes with equal distances (a lattice, and boxes around the
+    apexes: distance 0), +inf distances (a coordinate at +inf) and NaN
+    distances (a NaN coordinate)."""
+    lo = np.round(g.uniform(-4, 4, (c, 3)) * 2) / 2
+    hi = lo + 0.25
+    k = max(1, c // 10)
+    pick = g.choice(c, 3 * k, replace=False)
+    lo[pick[:k], 0] = hi[pick[:k], 0] = np.inf
+    lo[pick[k:2 * k], 1] = np.nan
+    lo[pick[2 * k:]], hi[pick[2 * k:]] = -50.0, 50.0
+    return (torch.tensor(lo, dtype=torch.float32, device=dev),
+            torch.tensor(hi, dtype=torch.float32, device=dev))
+
+
+def _select_matches_plain(args, kw):
+    """cluster_select on the card: one launch, every output bit for bit
+    the plain version's (NaN entries with their bits)."""
+    before = prologue.LAUNCHES["cluster_select"]
+    k = prologue.cluster_select(*args, **kw)
+    torch.cuda.synchronize()
+    assert prologue.LAUNCHES["cluster_select"] == before + 1
+    p = prologue.cluster_select_plain(*args, **kw)
+    for f, a, b in zip(prologue.Selection._fields, k, p):
+        assert _bits_equal(a, b), f
+    return k
+
+
+# Cluster counts of the three list paths: the warp's (C <= 32), the
+# block's shared-memory order, and past its capacity, the per-row select.
+SELECT_PATHS = {"warp": 24, "block": 700, "past_capacity": None}
+
+
+@pytest.mark.parametrize("path", sorted(SELECT_PATHS))
+def test_prologue_select_nan_inf_ties(cuda, path):
+    """Boxes at NaN, +inf and equal distances on each list path: the cull
+    alone (hit mask; any-hit), the cull with its lists, hit and any-hit
+    masks and cleared rows; two windows over a remaining mask, kc below
+    C; rows sharing an apex."""
+    g = np.random.default_rng(11)
+    c = SELECT_PATHS[path] or prologue.select_capacity() + 1000
+    lo, hi = _special_boxes(g, c, cuda)
+    apex = torch.tensor(g.uniform(-1, 1, (2, 3)), dtype=torch.float32,
+                        device=cuda)
+    rows = 2 * 24
+    planes = torch.tensor(g.normal(size=(rows, 4, 3)), dtype=torch.float32,
+                          device=cuda)
+    valid = torch.tensor(g.random(c) < 0.9, device=cuda)
+    row_valid = torch.tensor(g.random(rows) < 0.8, device=cuda)
+    for want in ("hit", "any"):  # the cull alone, its clusters split
+        _select_matches_plain(   # over blocks for the hit mask
+            (apex, planes, lo, hi, valid, 0),
+            {"rows_per_apex": 24, "row_valid": row_valid,
+             f"want_{want}": True})
+    for kc in (min(c, 7), c // 3, c):
+        sel = _select_matches_plain(
+            (apex, planes, lo, hi, valid, kc),
+            dict(rows_per_apex=24, row_valid=row_valid, want_hit=True,
+                 want_any=True))
+    assert bool(torch.isnan(sel.centry).any())
+    assert bool(torch.isinf(sel.centry).any())
+    remaining = torch.tensor(g.random((rows, c)) < 0.4, device=cuda)
+    kc = max(2, c // 8)
+    for _ in range(2):
+        sel = _select_matches_plain(
+            (apex, None, lo, hi, None, kc),
+            dict(remaining=remaining, rows_per_apex=24, window=True))
+        remaining = sel.new_remaining
+    assert bool(remaining.any())
+
+
+@pytest.mark.parametrize("kc", [50, 1100])
+def test_prologue_select_past_shared_capacity(cuda, kc):
+    """40,000 clusters, past the shared-memory order's capacity, over 64
+    rows: the per-row radix select, lists shorter and longer than 1,024,
+    the cull form and two windows, bit for bit."""
+    c = 40000
+    assert c > prologue.select_capacity()
+    g = np.random.default_rng(12)
+    lo = torch.tensor(g.uniform(-8, 8, (c, 3)), dtype=torch.float32,
+                      device=cuda)
+    hi = lo + torch.tensor(g.uniform(0.01, 0.3, (c, 1)),
+                           dtype=torch.float32, device=cuda)
+    apex = torch.tensor([[0.2, -0.1, 0.3], [1.0, 2.0, -0.5]], device=cuda)
+    planes = torch.tensor(g.normal(size=(64, 4, 3)), dtype=torch.float32,
+                          device=cuda)
+    valid = torch.ones(c, dtype=torch.bool, device=cuda)
+    _select_matches_plain((apex, planes, lo, hi, valid, kc),
+                          dict(rows_per_apex=32, want_any=True))
+    remaining = torch.tensor(g.random((64, c)) < 0.2, device=cuda)
+    for _ in range(2):
+        sel = _select_matches_plain(
+            (apex, None, lo, hi, None, kc),
+            dict(remaining=remaining, rows_per_apex=32, window=True))
+        remaining = sel.new_remaining
+    assert int(sel.ccount.min()) == kc
+
+
+@pytest.mark.parametrize("c", [24, 700])
+def test_prologue_select_own_apex_per_row(cuda, c):
+    """rows_per_apex = 1 (the merged instanced rows: an apex per row), on
+    the warp and block paths, with cleared rows."""
+    g = np.random.default_rng(13)
+    lo, hi = _special_boxes(g, c, cuda)
+    rows = 37
+    apex = torch.tensor(g.uniform(-1, 1, (rows, 3)), dtype=torch.float32,
+                        device=cuda)
+    planes = torch.tensor(g.normal(size=(rows, 4, 3)), dtype=torch.float32,
+                          device=cuda)
+    valid = torch.tensor(g.random(c) < 0.9, device=cuda)
+    row_valid = torch.tensor(g.random(rows) < 0.7, device=cuda)
+    for kc in (5, c):
+        _select_matches_plain((apex, planes, lo, hi, valid, kc),
+                              dict(row_valid=row_valid, want_hit=True))
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (8, 2), (1, 1)])
+def test_prologue_frusta_tile_ranges(cuda, grid):
+    """Tile ranges that start and end inside a tile row and inside a
+    block's 8 x 4 group, one tile, every pack form (raygen on the whole
+    frame), bit for bit."""
+    nsub, nrows = grid
+    w, h = 1000, 600
+    pw, ph = tiled.padded_size(w, h)
+    n_all = (pw // 32) * (ph // 32)
+    ivps = torch.as_tensor(_orbit(w, h, 3), dtype=torch.float32,
+                           device=cuda)
+    box = torch.tensor([-2.0, -2.0, -2.0, 2.0, 2.0, 2.0], device=cuda)
+    for pack in (None, "plain", "raygen"):
+        ranges = [None] if pack == "raygen" else [
+            None, (0, 1), (37, 1), (5, 70), (33, n_all - 40), (n_all - 9, 9)]
+        for tiles in ranges:
+            args = (ivps, w, h, pw, ph, nsub, nrows)
+            kw = dict(tiles=tiles, pack=pack, scene_aabb=box)
+            before = prologue.LAUNCHES["tile_frusta"]
+            k = prologue.tile_frusta(*args, **kw)
+            torch.cuda.synchronize()
+            assert prologue.LAUNCHES["tile_frusta"] == before + 1
+            p = prologue.tile_frusta_plain(*args, **kw)
+            for a, b in zip(k, p):
+                assert _bits_equal(a, b), (pack, tiles)
 
 
 def test_instanced_rows_on_card(cuda):

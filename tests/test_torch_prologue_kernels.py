@@ -17,13 +17,21 @@ cluster_select) on the CPU, where they run their plain versions.
   (c) the wrappers' plain path gives, bit for bit, the rows the port's
       prologue gave before the kernels (frames_inputs, cluster_window and
       the merged launch's world frame and lists): that composition, with
-      its .sum(-1) dots, is kept below.
+      its .sum(-1) dots, is kept below;
+  (d) the rules the kernels rest on (csrc/prologue.cu runs only on the
+      card): a row's list is its apex's (distance, index) order filtered
+      by the row's held mask, then the +inf keys and the NaN keys in index
+      order, and a window keeps the held keys after the kc-th, held with
+      hypothesis against cluster_select_plain; and every tile's corner
+      directions are those of the frame's shared corner lattice, bit for
+      bit, so each corner is computed once.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from rtmm_tpu.config import RenderConfig as JaxConfig
 from rtmm_tpu.models import procedural as jproc
@@ -538,3 +546,146 @@ def test_wrappers_refuse_bad_input(scenes):
             torch.zeros((2, 3)), torch.zeros((3, 4, 3)),
             scene.cluster_aabb_min, scene.cluster_aabb_max,
             scene.cluster_valid, 2)
+
+
+# ----------------------------------------------------------------------
+# (d) the rules of the kernels' design, on the plain version.
+
+def _model_lists(dist, held, kc, window):
+    """The kernel's decomposition of one row: the apex's order (finite
+    distances by (distance, index)) filtered by the row's held mask, then
+    the +inf keys (not held, or held at +inf) and the NaN keys (held at
+    NaN), each in index order; for a window, the held clusters whose key
+    is after the kc-th selected one. Returns (ccand, ccount, centry,
+    new_remaining, next_bound)."""
+    idx = np.arange(dist.size)
+    finite = np.isfinite(dist)
+    order = idx[np.lexsort((idx, np.where(finite, dist, 0.0), ~finite))]
+    chosen = [c for c in order if finite[c] and held[c]]
+    inf_keys = [c for c in idx if not held[c] or dist[c] == np.inf]
+    nan_keys = [c for c in idx if held[c] and np.isnan(dist[c])]
+    cand = (chosen + inf_keys + nan_keys)[:kc]
+    entry = [dist[c] if (finite[c] and held[c]) or np.isnan(dist[c])
+             and held[c] else np.inf for c in cand]
+    new_rem = np.zeros(dist.size, bool)
+    bound = np.float32(np.inf)
+    if window and len(chosen) >= kc:
+        kth = chosen[kc - 1]
+        with np.errstate(invalid="ignore"):
+            new_rem = held & ((dist > dist[kth])
+                              | ((dist == dist[kth]) & (idx > kth)))
+        if new_rem.any():
+            bound = dist[new_rem].min()
+    return (np.array(cand), min(len(chosen), kc),
+            np.array(entry, np.float32), new_rem, bound)
+
+
+def _bits_np(x):
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1), n_cl=st.integers(1, 40),
+       n_apex=st.integers(1, 3), rows_per_apex=st.integers(1, 4),
+       kc_frac=st.floats(0.0, 1.0), cull=st.booleans())
+def test_lists_are_the_apex_order_filtered(seed, n_cl, n_apex,
+                                           rows_per_apex, kc_frac, cull):
+    """Random boxes on a half-unit lattice (equal distances), some at
+    +inf or NaN and some around the apex (distance 0); rows that hold few
+    clusters; kc below and at C; two windows: the plain version's lists,
+    counts, entries, cleared masks and bounds are the model's."""
+    g = np.random.default_rng(seed)
+    centers = np.round(g.uniform(-3, 3, (n_cl, 3)) * 2) / 2
+    lo, hi = centers - 0.25, centers + 0.25
+    kind = g.integers(0, 6, n_cl)
+    lo[kind == 0, 0] = hi[kind == 0, 0] = np.inf
+    lo[kind == 1, 1] = np.nan
+    lo[kind == 2], hi[kind == 2] = -9.0, 9.0
+    lo = torch.tensor(lo, dtype=torch.float32)
+    hi = torch.tensor(hi, dtype=torch.float32)
+    apex = torch.tensor(np.round(g.uniform(-1, 1, (n_apex, 3)) * 2) / 2,
+                        dtype=torch.float32)
+    rows = n_apex * rows_per_apex
+    kc = max(1, int(round(kc_frac * n_cl)))
+    dist = culling.aabb_distance(apex[:, None, :], lo, hi).numpy()
+    if cull:
+        planes = torch.tensor(g.normal(size=(rows, 4, 3)),
+                              dtype=torch.float32)
+        valid = torch.tensor(g.random(n_cl) < 0.9)
+        row_valid = torch.tensor(g.random(rows) < 0.8)
+        sel = prologue.cluster_select(
+            apex, planes, lo, hi, valid, kc, row_valid=row_valid,
+            rows_per_apex=rows_per_apex, want_hit=True)
+        passes = [(sel, sel.hit.numpy())]
+    else:
+        remaining = torch.tensor(g.random((rows, n_cl))
+                                 < g.choice([0.1, 0.5, 0.9]))
+        passes = []
+        for _ in range(2):
+            sel = prologue.cluster_select(
+                apex, None, lo, hi, None, kc, remaining=remaining,
+                rows_per_apex=rows_per_apex, window=True)
+            passes.append((sel, remaining.numpy()))
+            remaining = sel.new_remaining
+    for sel, held in passes:
+        for r in range(rows):
+            cand, count, entry, new_rem, bound = _model_lists(
+                dist[r // rows_per_apex], held[r], kc, not cull)
+            np.testing.assert_array_equal(sel.ccand[r].numpy(), cand)
+            assert int(sel.ccount[r]) == count
+            np.testing.assert_array_equal(_bits_np(sel.centry[r]),
+                                          _bits_np(entry))
+            if not cull:
+                np.testing.assert_array_equal(sel.new_remaining[r].numpy(),
+                                              new_rem)
+                assert _bits_np(sel.next_bound[r]) == _bits_np(bound)
+
+
+def _corner_dirs(m, ndc_x, ndc_y):
+    """culling._cone_grid_normals' corner directions: unproject(1) -
+    unproject(0), divided by its norm (the square root taken in float64
+    and rounded, correctly rounded as on the card)."""
+    def unproj(z):
+        p = [m[i, 0] * ndc_x + m[i, 1] * ndc_y + (m[i, 2] * z + m[i, 3])
+             for i in range(4)]
+        return torch.stack([p[0] / p[3], p[1] / p[3], p[2] / p[3]], dim=-1)
+
+    d = unproj(1.0) - unproj(0.0)
+    norm = torch.sqrt((d * d).sum(-1, keepdim=True).double()).float()
+    return d / norm
+
+
+@pytest.mark.parametrize("grid", [(4, 1), (8, 2), (1, 1), (8, 1)])
+def test_tile_corners_are_one_lattice(grid):
+    """Corner (r, c) of tile (i, j) is pixel (32 j + c sw, 32 i + r sh),
+    the integer pixel of the frame's corner lattice at (i nrows + r, j
+    ncols + c): the per-tile NDC that tile_frusta_plain reads
+    (culling._corner_ndc) and the directions made from them equal the
+    lattice's, bit for bit, so a corner shared by four tiles is computed
+    once."""
+    n_sub, n_rows = grid
+    n_cols = n_sub // n_rows
+    tx, ty = PW // culling.TILE_W, PH // culling.TILE_H
+    ndc_x, ndc_y = torch.broadcast_tensors(*culling._corner_ndc(
+        W, H, PW, PH, n_rows, n_cols, torch.device("cpu")))
+    sw, sh = culling.TILE_W // n_cols, culling.TILE_H // n_rows
+    px = torch.arange(tx * n_cols + 1, dtype=torch.float32) * sw
+    py = torch.arange(ty * n_rows + 1, dtype=torch.float32) * sh
+    lat_x = (_f32.div(px, float(W)) * 2.0 - 1.0)[None, :].expand(
+        py.numel(), -1)
+    lat_y = (-(_f32.div(py, float(H)) * 2.0 - 1.0))[:, None].expand(
+        -1, px.numel())
+    rr = (torch.arange(ty)[:, None, None, None] * n_rows
+          + torch.arange(n_rows + 1)[None, None, :, None])
+    cc = (torch.arange(tx)[None, :, None, None] * n_cols
+          + torch.arange(n_cols + 1)[None, None, None, :])
+    assert torch.equal(lat_x[rr, cc].view(torch.int32),
+                       ndc_x.view(torch.int32))
+    assert torch.equal(lat_y[rr, cc].view(torch.int32),
+                       ndc_y.view(torch.int32))
+    for ivp in IVPS:
+        m = torch.as_tensor(ivp, dtype=torch.float32)
+        per_tile = _corner_dirs(m, ndc_x, ndc_y)
+        lattice = _corner_dirs(m, lat_x, lat_y)
+        assert torch.equal(lattice[rr, cc].view(torch.int32),
+                           per_tile.view(torch.int32))
