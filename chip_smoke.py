@@ -84,29 +84,33 @@ Phases (any failure raises and exits non-zero):
      8 sub-cones, 3 bounces, 2 samples per pixel), counted: PathTracer.render
      for 2 frames and a 32-frame orbit frame by frame, one raw launch (K1d)
      per frame, one grouped-trace launch (K2) per window of each bounce,
-     3 pt_spawn and 4 pt_shade launches per frame (csrc/path_shade.cu: the
-     draw and the next ray, the shading);
+     one pt_primary and 3 pt_bounce launches per frame (csrc/path_shade.cu:
+     each the shading, the draw and the next ray of the primaries or of
+     a bounce);
      K2 against its plain version on every launch of frame 0 (t, visits,
      gated sub-groups and tests equal, bounce 1's visits and gated held to
      their pins), each bounce's K2 ms beside the ms before the redesign;
-     pt_spawn's uniforms on all 524,288 lanes bit-equal to the plain draw
-     for bounces 0-2 and two seeds; pt_spawn and pt_shade against their
-     plain versions on every call of frame 0 (uniforms, origins, radiance
-     and normals bit for bit, directions within 2 ulp of 1), each launch's
-     device time (launches queued behind a spin kernel) beside its
-     wrapper's time per call, its plain version's and its bound; the
-     frame with the kernels against the frame with the plain versions
-     (bit for bit, or within config 5's gate; live counts equal) and the
-     stage ms of both;
+     the uniforms of all 524,288 lanes bit-equal to the plain draw for
+     bounce 0 (pt_primary) and bounces 1-2 (pt_bounce) and two seeds;
+     pt_primary and pt_bounce against their plain versions on every call
+     of frame 0 (uniforms, origins, radiance, hit and alive bit for bit,
+     directions within 2 ulp of 1), each launch's device time (launches
+     queued behind a spin kernel) beside an empty kernel's on the same
+     grid (the launch floor), PR 13's pt_shade + pt_spawn ms of the same
+     form, its wrapper's time per call, its plain version's and its
+     bound; the frame with the kernels against the frame with the plain
+     versions (bit for bit, or within config 5's gate; live counts
+     equal), the stage ms of both and the frame's kernel launch calls;
      the reference's engine gate (bench.py:543-585: the pallas and grouped
      engines on one 256x256 frame, and the grouped engine once more with
      no candidate cut, to see whether the cut explains a live-count
      difference); the lane cuts against none, bit for bit; frame, orbit,
      stage times, K2's bound over its tests, and the grouped engine's
      trace of the same bounce;
- 15. config 5 compressed (K1d + K1c, K2 compressed, pt_spawn, pt_shade):
-     counted frames, K2 against its plain version on every launch of
-     frame 0 as in phase 14, pt_spawn / pt_shade against their plain
+ 15. config 5 compressed (K1d + K1c, K2 compressed, pt_primary,
+     pt_bounce): counted frames, K2 against its plain version on every
+     launch of frame 0 as in phase 14, pt_primary / pt_bounce against
+     their plain
      versions on every call of frame 0 and the frame against its plain
      version as in phase 14, the frame within the gate of phase 14's, the
      frame's stage times, MiB of both scenes;
@@ -128,8 +132,8 @@ Phases (any failure raises and exits non-zero):
      share of the traced window, in a process of its own (its three
      launches counted there);
  18. the path tracer's perray engine on config 5's scene with its
-     hierarchy at phase 14's 256x256 gate frame (pt_spawn, pt_shade;
-     counted), against the pallas engine (K1d, K2, pt_spawn, pt_shade;
+     hierarchy at phase 14's 256x256 gate frame (pt_primary, pt_bounce;
+     counted), against the pallas engine (K1d, K2, pt_primary, pt_bounce;
      counted) within bench.py:583-584's budgets; frame ms;
  19. the debug render on config 3 at 1080p (clean: passes; one NaN planted
      in leaf_verts: FloatingPointError), the scene cache (the second build
@@ -157,7 +161,7 @@ Phases (any failure raises and exits non-zero):
      its verify against the XLA tile backend within budget, and each
      stage's launches as expected (one batched fused launch per orbit
      call); then its config 8 (two-level instanced, K1d) and config 5
-     (path-traced, K1d, K2, pt_spawn and pt_shade) rows in this process
+     (path-traced, K1d, K2, pt_primary and pt_bounce) rows in this process
      with 4-frame orbits, their launches counted from 0 and their
      verifies within budget.
 
@@ -288,25 +292,36 @@ PT_SIZE, PT_BOUNCES, PT_SPP, PT_ORBIT, PT_VERIFY = 512, 3, 2, 32, 256
 # divisions 3; sign flips and entries that are 0 are not counted.
 K2_OPS_PER_RAY_LEAF = 5 + 11 + 11 + 6 + 11 + 1 + 4 + 4 + 1 + 1
 K2_DERIVE_OPS_PER_LEAF = 6 + 27 + 5 + 9 + 7 + 3
-# Least-time counts of pt_spawn / pt_shade (csrc/path_shade.cu), per
-# lane. The draw: four Threefry-2x32 blocks of 79 32-bit operations (2
-# xors for the third key word, 2 adds, 20 rounds of add / rotate / xor, 5
-# key injections of 3 adds), g // total and g % total, and the uniforms'
-# xor, shift and or (2 x 3): 324. The direction around the normal: the
-# radius, angle, cos, sin and height (9), the basis switch (2), two cross
-# products (18), the norm (7) and its 3 divisions, the 3 x 5 sum and the
-# uniforms' 2 subtractions: 56 float32 operations. Both only on the lanes
-# that spawn (hits). Per lane of a bounce: the hit select, the new origin
-# (3 x 4) and the direction select (3): 16; of the primary form: the
-# direction select, 3. pt_shade: the normal's norm, division and flip
-# toward the ray (19) per lane, plus 18 for the radiance's two selected
-# products and adds on a bounce (3 for the primary form's select), and the
-# four lights (4 x 15) and Reinhard (6) on each hit.
+# Least-time counts of pt_primary / pt_bounce (csrc/path_shade.cu). The
+# draw: four Threefry-2x32 blocks of 79 32-bit operations (2 xors for the
+# third key word, 2 adds, 20 rounds of add / rotate / xor, 5 key
+# injections of 3 adds), g // total and g % total, and the uniforms' xor,
+# shift and or (2 x 3): 324. The direction around the normal: the radius,
+# angle, cos, sin and height (9), the basis switch (2), two cross products
+# (18), the norm (7) and its 3 divisions, the 3 x 5 sum and the uniforms'
+# 2 subtractions: 56 float32 operations. Both only on the lanes that
+# spawn (hits). The normal's norm, division and flip toward the ray: 19;
+# the four lights (4 x 15) and Reinhard (6): 66, on each hit. pt_primary
+# per pixel: the normal, the radiance select (3) and the bounce origin
+# (3 x 4): 34; per lane the direction select, 3. pt_bounce per lane: the
+# hit test (2 compares) and the radiance's two selected products and adds
+# (18); with spawn the normal (19), the hit select, the new origin (3 x 4)
+# and the direction select (3): 16 more; without it the normal only on
+# hits.
 PT_DRAW_INT_OPS = 4 * 79 + 2 + 6
 PT_DIR_FP_OPS = 9 + 2 + 18 + 7 + 3 + 15 + 2
-PT_SPAWN_FP_LANE, PT_SPAWN_FP_LANE0 = 16, 3
-PT_DIRECT_FP_OPS = 4 * 15 + 6
-PT_SHADE_FP_LANE, PT_SHADE_FP_LANE0 = 19 + 18, 19 + 3
+PT_NORMAL_FP, PT_DIRECT_FP_OPS = 19, 4 * 15 + 6
+PT_PIXEL_FP, PT_LANE0_FP = 19 + 3 + 12, 3
+PT_BOUNCE_FP_LANE, PT_SPAWN_FP_LANE = 2 + 18, 19 + 16
+# Device ms per launch of PR 13's pt_shade + pt_spawn on config 5's frame
+# 0, per form of the kernel that replaces them (PERF.md section 6, PR 13
+# run 4, NVIDIA H100 80GB HBM3 at 700 W): the primaries 0.005530 +
+# 0.007602; bounces 1 and 2 0.004445 + 0.004470 and 0.003582 + 0.003789;
+# bounce 3 pt_shade's 0.003427 alone. Printed beside this run's ms.
+PT_MS_BEFORE = {"primary": 0.005530 + 0.007602,
+                "bounce 1": 0.004445 + 0.004470,
+                "bounce 2": 0.003582 + 0.003789,
+                "bounce 3": 0.003427}
 # 32-bit integer operations per second of an H100 SXM: 64 INT32 lanes per
 # SM per clock x 132 SMs x 1.98 GHz (the published peaks list no integer
 # rate outside the tensor cores).
@@ -315,7 +330,7 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 # launches behind (~10 ms at 1.98 GHz; the host queues 20 wrapper calls
 # in ~1 ms).
 SPIN_CYCLES = 20_000_000
-# Seeds of pt_spawn's all-lane draw check.
+# Seeds of the bounce kernels' all-lane draw check.
 PT_DRAW_SEEDS = (0, 2**31 - 1)
 # K2 unit visits the plain version may walk in one comparison (~2 ms per
 # visit on the card); above it the comparison takes CHECK_TILES groups.
@@ -2053,9 +2068,9 @@ def _k2_entry(name, launches, checks, **extra):
 def _pt_frames(tracer, ivps, name, kernels):
     """The counted main path of a path-traced configuration: frames
     through PathTracer.render, launches held to one raw launch per frame,
-    one K2 launch per window iteration and PT_BOUNCES pt_spawn and
-    PT_BOUNCES + 1 pt_shade launches per frame. Returns the (image,
-    stats) pairs and the launches by kernel."""
+    one K2 launch per window iteration, one pt_primary and PT_BOUNCES
+    pt_bounce launches per frame. Returns the (image, stats) pairs and the
+    launches by kernel."""
     _reset_all()
     rec = {}
     with _k2_recording(rec, launches=False):
@@ -2064,8 +2079,8 @@ def _pt_frames(tracer, ivps, name, kernels):
     raw, k2 = kernels
     got = _expect_launches(f"{name} main path",
                            {raw: len(ivps), k2: rec["windows"],
-                            "pt_spawn": len(ivps) * PT_BOUNCES,
-                            "pt_shade": len(ivps) * (PT_BOUNCES + 1),
+                            "pt_primary": len(ivps),
+                            "pt_bounce": len(ivps) * PT_BOUNCES,
                             "tile_frusta": len(ivps),
                             "cluster_select": 2 * len(ivps)})
     for img, st in out:
@@ -2077,10 +2092,10 @@ def _pt_frames(tracer, ivps, name, kernels):
                                f"not monotone: {live.tolist()}")
     _log(f"[{name} main path] {len(ivps)} frames: {got[raw]} raw launches, "
          f"{got[k2]} K2 launches = {rec['windows']} window iterations over "
-         f"{len(rec['traces'])} bounce traces, {got['pt_spawn']} pt_spawn "
-         f"and {got['pt_shade']} pt_shade launches ({PT_BOUNCES} and "
-         f"{PT_BOUNCES + 1} per frame); frames finite, live counts "
-         f"monotone")
+         f"{len(rec['traces'])} bounce traces, {got['pt_primary']} "
+         f"pt_primary and {got['pt_bounce']} pt_bounce launches (1 and "
+         f"{PT_BOUNCES} per frame, where PR 13's pt_spawn + pt_shade took "
+         f"{2 * PT_BOUNCES + 1}); frames finite, live counts monotone")
     return out, got
 
 
@@ -2102,80 +2117,85 @@ def _pt_gate(a, b) -> dict:
 
 @contextlib.contextmanager
 def _pt_recording(rec: dict):
-    """While active: record each path_shade.spawn / shade call of the path
-    tracer (rec["spawn"], rec["shade"]: lists of (args, kwargs))."""
+    """While active: record each path_shade.primary / bounce call of the
+    path tracer (rec["primary"], rec["bounce"]: lists of (args,
+    kwargs))."""
     from rtmm_tpu_torch.ops import path_shade
-    orig = path_shade.spawn, path_shade.shade
+    orig = path_shade.primary, path_shade.bounce
 
-    def spawn(*args, **kwargs):
-        rec.setdefault("spawn", []).append((args, kwargs))
+    def primary(*args, **kwargs):
+        rec.setdefault("primary", []).append((args, kwargs))
         return orig[0](*args, **kwargs)
 
-    def shade(*args, **kwargs):
-        rec.setdefault("shade", []).append((args, kwargs))
+    def bounce(*args, **kwargs):
+        rec.setdefault("bounce", []).append((args, kwargs))
         return orig[1](*args, **kwargs)
 
-    path_shade.spawn, path_shade.shade = spawn, shade
+    path_shade.primary, path_shade.bounce = primary, bounce
     try:
         yield rec
     finally:
-        path_shade.spawn, path_shade.shade = orig
+        path_shade.primary, path_shade.bounce = orig
 
 
 @contextlib.contextmanager
 def _pt_plain():
-    """While active, the path tracer's spawn and shade run their plain
-    versions on the card's tensors: the frame as it was before pt_spawn
-    and pt_shade."""
+    """While active, the path tracer's bounce work runs the plain versions
+    on the card's tensors: the frame as it was before the kernels."""
     from rtmm_tpu_torch.ops import path_shade
-    orig = path_shade.spawn, path_shade.shade
-    path_shade.spawn, path_shade.shade = (path_shade.spawn_plain,
-                                          path_shade.shade_plain)
+    orig = path_shade.primary, path_shade.bounce
+    path_shade.primary, path_shade.bounce = (path_shade.primary_plain,
+                                             path_shade.bounce_plain)
     try:
         yield
     finally:
-        path_shade.spawn, path_shade.shade = orig
+        path_shade.primary, path_shade.bounce = orig
 
 
 def _pt_bound(kind: str, args, kwargs) -> tuple[float, str, str]:
-    """Least time of one pt_spawn / pt_shade launch on these inputs: its
-    bytes (each input read once, each output written once) over the HBM
-    rate, or its operations over their peak rates (32-bit integer and
+    """Least time of one pt_primary / pt_bounce launch on these inputs:
+    its bytes (each input read once, each output written once) over the
+    HBM rate, or its operations over their peak rates (32-bit integer and
     float32 units work side by side, so the larger of the two), whichever
-    is larger. Only the bytes an output depends on count: the draw's idx
-    and t, and a primary's normal, on the drawn lanes; a primary's
-    direction on the pixels it misses; alive on the lanes that miss.
-    Returns (ms, "bytes" or "operations", how it was counted)."""
-    if kind == "spawn":
-        hit, o = args[4], args[5]
-        n, hits = o.shape[0], int(hit.sum())
-        if kwargs.get("t") is None:
-            lanes = kwargs["lanes"]
-            draws = hits * (lanes // args[2])
-            per_lane = PT_SPAWN_FP_LANE0
-            # o and hit of every pixel, nrm of the hits, d of the misses.
-            nbytes = n * 13 + hits * 12 + (n - hits) * 12
-        else:
-            lanes, draws, per_lane = n, hits, PT_SPAWN_FP_LANE
-            # o, d, nrm and hit of every lane, idx and t of the drawn ones.
-            nbytes = n * 37 + draws * 8
-        nbytes += lanes * 24                            # o_out, d_out
-        int_ops = draws * PT_DRAW_INT_OPS
-        fp_ops = draws * PT_DIR_FP_OPS + lanes * per_lane
-        what = (f"{draws} draws x ({PT_DRAW_INT_OPS} int32 + {PT_DIR_FP_OPS} "
-                f"fp32) + {lanes} lanes x {per_lane} fp32")
+    is larger. Only the bytes an output depends on count: a bounce's idx
+    on the drawn lanes; the last bounce's normal and direction on its
+    hits. Returns (ms, "bytes" or "operations", how it was counted)."""
+    from rtmm_tpu_torch.ops import path_shade
+    if kind == "primary":
+        total, spp, hit = args[1], args[2], args[7]
+        pixels, hits = hit.shape[0], int(hit.sum())
+        lanes, draws = spp * total, hits * spp
+        # bn, d, o, t, hit in and the radiance out per pixel; o, d and
+        # alive out per lane.
+        nbytes = pixels * (41 + 12) + lanes * 25
+        fp_ops = (pixels * PT_PIXEL_FP + hits * PT_DIRECT_FP_OPS
+                  + draws * PT_DIR_FP_OPS + lanes * PT_LANE0_FP)
+        what = (f"{pixels} pixels x {PT_PIXEL_FP} + {hits} hits x "
+                f"{PT_DIRECT_FP_OPS} + {draws} draws x ({PT_DRAW_INT_OPS} "
+                f"int32 + {PT_DIR_FP_OPS}) + {lanes} lanes x {PT_LANE0_FP} "
+                "fp32")
     else:
-        hit = args[2]
-        lanes, hits = args[0].shape[0], int(hit.sum())
-        bounce = kwargs.get("rad") is not None
-        per_lane = PT_SHADE_FP_LANE if bounce else PT_SHADE_FP_LANE0
-        # bn, d and hit in, rad and nrm out; a bounce's rad in and alive of
-        # the lanes that miss.
-        nbytes = lanes * 49 + (lanes * 12 + lanes - hits if bounce else 0)
-        int_ops = 0
-        fp_ops = hits * PT_DIRECT_FP_OPS + lanes * per_lane
-        what = (f"{hits} hits x {PT_DIRECT_FP_OPS} + {lanes} lanes x "
-                f"{per_lane} fp32")
+        t, alive = args[6], args[7]
+        spawn = kwargs.get("spawn", True)
+        given = kwargs.get("hit")
+        hit = (alive & (t < path_shade.BIG) & (t > 0.0) if given is None
+               else alive & given)
+        lanes, hits = alive.shape[0], int(hit.sum())
+        draws = hits if spawn else 0
+        # alive, t, rad in, rad and hit out per lane (a given hit mask
+        # too); with spawn bn, d, o in and o, d out per lane, idx per draw;
+        # without, bn and d on the hits.
+        nbytes = lanes * (30 + (given is not None))
+        nbytes += lanes * 60 + draws * 4 if spawn else hits * 24
+        fp_ops = (lanes * PT_BOUNCE_FP_LANE + hits * PT_DIRECT_FP_OPS
+                  + (lanes * PT_SPAWN_FP_LANE + draws * PT_DIR_FP_OPS
+                     if spawn else hits * PT_NORMAL_FP))
+        what = (f"{lanes} lanes x {PT_BOUNCE_FP_LANE}"
+                + (f" + {lanes} x {PT_SPAWN_FP_LANE}" if spawn else
+                   f" + {hits} normals x {PT_NORMAL_FP}")
+                + f" + {hits} hits x {PT_DIRECT_FP_OPS} + {draws} draws x "
+                f"({PT_DRAW_INT_OPS} int32 + {PT_DIR_FP_OPS}) fp32")
+    int_ops = draws * PT_DRAW_INT_OPS
     ops_ms = max(int_ops / PEAK_INT32, fp_ops / PEAK_FP32) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     by = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -2185,26 +2205,40 @@ def _pt_bound(kind: str, args, kwargs) -> tuple[float, str, str]:
 
 
 def _pt_draw_check(card, total: int, lanes: int, dev) -> dict:
-    """pt_spawn's uniforms on every lane (the primary form, all lanes
-    drawn) against the plain draw on the card, bit for bit, for bounces
-    0-2 and two seeds."""
+    """The bounce kernels' uniforms on every lane against the plain draw
+    on the card, bit for bit, for two seeds: pt_primary's (bounce 0, all
+    spp x total lanes drawn) and pt_bounce's for bounces 1 and 2 (every
+    lane of an unsorted state, idx = g)."""
+    from rtmm_tpu_torch.config import RenderConfig
     from rtmm_tpu_torch.ops import path_shade
     from rtmm_tpu_torch.utils import threefry
-    zeros3 = torch.zeros((total, 3), device=dev)
+    sc = path_shade.shading_consts(RenderConfig())
+    z3 = torch.zeros((total, 3), device=dev)
+    z1 = torch.zeros(total, device=dev)
     nohit = torch.zeros(total, dtype=torch.bool, device=dev)
     g = torch.arange(lanes, dtype=torch.int32, device=dev)
+    zl3 = torch.zeros((lanes, 3), device=dev)
+    zl1 = torch.zeros(lanes, device=dev)
+    dead = torch.zeros(lanes, dtype=torch.bool, device=dev)
     bad = 0
     for seed in PT_DRAW_SEEDS:
         for bounce in range(3):
-            u = path_shade.spawn(seed, bounce, total, zeros3, nohit, zeros3,
-                                 zeros3, lanes=lanes, with_u=True)[2]
+            if bounce == 0:
+                u = path_shade.primary(seed, total, lanes // total, z3, z3,
+                                       z3, z1, nohit, sc, with_u=True)[4]
+            else:
+                u = path_shade.bounce(seed, bounce, total, zl3, zl3, zl3,
+                                      zl1, dead, zl3, g, sc,
+                                      with_u=True)[4]
             p = path_shade.rand2(threefry.key(seed, dev), bounce, g, total)
             bad += int((u.view(torch.int32) != p.view(torch.int32)).sum())
-    _log(f"[pt_spawn draw] {card}: the uniforms of all {lanes} lanes "
-         f"(total {total}) for bounces 0-2 and seeds {PT_DRAW_SEEDS} against "
-         f"the plain draw (int64 threefry) on the card: {bad} words differ")
+    _log(f"[pt draw] {card}: the uniforms of all {lanes} lanes (total "
+         f"{total}) for bounce 0 (pt_primary) and bounces 1-2 (pt_bounce) "
+         f"and seeds {PT_DRAW_SEEDS} against the plain draw (int64 "
+         f"threefry) on the card: {bad} words differ")
     if bad:
-        raise RuntimeError("pt_spawn's draw differs from jax.random's")
+        raise RuntimeError("the bounce kernels' draw differs from "
+                           "jax.random's")
     return {"lanes": lanes, "seeds": list(PT_DRAW_SEEDS), "bounces": 3,
             "words_differ": bad}
 
@@ -2215,109 +2249,120 @@ def _ulp1_diff(a, b) -> float:
 
 
 def _pt_checks(card, name, rec) -> dict:
-    """pt_spawn and pt_shade against their plain versions on every call
-    of one recorded frame: uniforms, origins, radiance and normals bit
-    for bit, directions bit for bit or within 2 ulp of 1 (cos / sin);
-    each launch's device time beside its wrapper's time per call (host
-    work included), its plain version's and its bound."""
+    """pt_primary and pt_bounce against their plain versions on every
+    call of one recorded frame: uniforms, origins, radiance, hit and
+    alive bit for bit, directions bit for bit or within 2 ulp of 1 (cos /
+    sin); each launch's device time (launches queued behind a spin)
+    beside an empty kernel's on the same grid (the floor), PR 13's two
+    kernels' ms for the same form, its wrapper's time per call (host work
+    included), its plain version's and its bound."""
     from rtmm_tpu_torch.ops import path_shade
     res = {}
-    for kind in ("spawn", "shade"):
+    for kind in ("primary", "bounce"):
         rows = []
+        wrapper = getattr(path_shade, kind)
+        plain = getattr(path_shade, f"{kind}_plain")
         for call, (args, kwargs) in enumerate(rec[kind]):
-            form = ("primary" if (kwargs.get("t") is None if kind == "spawn"
-                                  else kwargs.get("rad") is None)
-                    else "bounce")
-            if kind == "spawn":
-                k = path_shade.spawn(*args, **kwargs)
-                ku = path_shade.spawn(*args, **kwargs, with_u=True)
-                p = path_shade.spawn_plain(*args, **kwargs, with_u=True)
-                exact = (torch.equal(k[0], p[0]) and torch.equal(ku[0], p[0])
-                         and torch.equal(ku[1], k[1])
-                         and torch.equal(ku[2].view(torch.int32),
-                                         p[2].view(torch.int32)))
-                ndiff = int((k[1] != p[1]).any(-1).sum())
-                err = _ulp1_diff(k[1], p[1])
-                ok = exact and err <= 2.0
-                outs = k
-
-                def kernel_once(args=args, kwargs=kwargs):
-                    path_shade.spawn(*args, **kwargs)
-
-                def plain_once(args=args, kwargs=kwargs):
-                    path_shade.spawn_plain(*args, **kwargs)
-                detail = (f"uniforms and origins bit-equal {exact}; "
-                          f"directions differ on {ndiff} lanes, max "
-                          f"{err:.1f} ulp of 1")
+            spawn = kind == "primary" or kwargs.get("spawn", True)
+            form = "primary" if kind == "primary" else f"bounce {args[1]}"
+            k = wrapper(*args, **kwargs)
+            nd = 2 if kind == "primary" else 3      # the directions
+            if spawn:
+                ku = wrapper(*args, **kwargs, with_u=True)
+                p = plain(*args, **kwargs, with_u=True)
+                exact = (all(torch.equal(a, b) for j, (a, b) in
+                             enumerate(zip(ku[:-1], p[:-1])) if j != nd)
+                         and all(torch.equal(a, b)
+                                 for a, b in zip(k, ku[:-1]))
+                         and torch.equal(ku[-1].view(torch.int32),
+                                         p[-1].view(torch.int32)))
+                ndiff = int((k[nd] != p[nd]).any(-1).sum())
+                err = _ulp1_diff(k[nd], p[nd]) if k[nd].numel() else 0.0
+                detail = (f"uniforms, origins, radiance and masks bit-equal "
+                          f"{exact}; directions differ on {ndiff} lanes, "
+                          f"max {err:.1f} ulp of 1")
             else:
-                k = path_shade.shade(*args, **kwargs)
-                p = path_shade.shade_plain(*args, **kwargs)
-                ok = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-                err = max(_ulp1_diff(k[0], p[0]), _ulp1_diff(k[1], p[1]))
-                outs = k
+                p = plain(*args, **kwargs)
+                exact = all(torch.equal(a, b) for a, b in zip(k, p))
+                err = 0.0 if exact else _ulp1_diff(k[0], p[0])
+                detail = f"radiance and hit bit-equal {exact} (last bounce)"
+            ok = exact and err <= 2.0
+            lanes = k[1].shape[0] if kind == "primary" else k[0].shape[0]
 
-                def kernel_once(args=args, kwargs=kwargs):
-                    path_shade.shade(*args, **kwargs)
+            def kernel_once(args=args, kwargs=kwargs):
+                wrapper(*args, **kwargs)
 
-                def plain_once(args=args, kwargs=kwargs):
-                    path_shade.shade_plain(*args, **kwargs)
-                detail = f"radiance and normals bit-equal {ok}"
+            def plain_once(args=args, kwargs=kwargs):
+                plain(*args, **kwargs)
+
+            blocks = -(-(args[1] if kind == "primary" else lanes) // 256)
+            dev = k[0].device
             torch.cuda.synchronize()
             ms = _queued_ms(kernel_once)
+            floor_ms = _queued_ms(
+                lambda: path_shade.empty_launch(dev, blocks))
             wrapper_ms = _events_ms(kernel_once, reps=20)
             plain_ms = _events_ms(plain_once, reps=3)
             bound, by, how = _pt_bound(kind, args, kwargs)
-            lanes = outs[0].shape[0]
+            before = PT_MS_BEFORE.get(form)
             _log(f"[{name} pt_{kind} {call} ({form})] {card}: {lanes} lanes, "
                  f"{detail}; kernel {ms:.6f} ms on the device (20 launches "
-                 f"queued behind a spin), wrapper {wrapper_ms:.4f} ms per "
+                 f"queued behind a spin), an empty kernel on its {blocks} "
+                 f"blocks {floor_ms:.6f} ms, wrapper {wrapper_ms:.4f} ms per "
                  f"call (20 calls back to back), plain {plain_ms:.4f} ms; "
                  f"bound {bound:.6f} ms ({by}: {how}), kernel at "
                  f"{bound / ms:.3f} of it")
+            if before is not None:
+                _log(f"[{name} pt_{kind} {call} ({form}) vs PR 13] "
+                     f"{ms:.6f} ms against {before:.6f} ms of pt_shade + "
+                     f"pt_spawn (PR 13 run 4, PT_MS_BEFORE)")
             if not ok:
                 raise RuntimeError(f"{name}: pt_{kind} call {call} disagrees "
                                    "with its plain version")
             rows.append(dict(form=form, lanes=lanes, err_ulp=err, ms=ms,
-                             wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                             bound=(bound, by)))
+                             floor_ms=floor_ms, wrapper_ms=wrapper_ms,
+                             plain_ms=plain_ms, bound=(bound, by)))
         res[kind] = rows
     return res
 
 
 def _pt_entry(kind: str, launches: int, checks: dict, **extra) -> dict:
-    """The kernel-table entry of pt_spawn / pt_shade: the device ms,
-    wrapper ms, plain ms and bound of frame 0's first bounce launch (the
-    primary form's beside them), the launches of the main path, the
-    largest difference in ulp of 1 (directions only: the rest is
-    bit-equal)."""
+    """The kernel-table entry of pt_primary / pt_bounce: the device ms,
+    floor ms, wrapper ms, plain ms and bound of frame 0's primaries or
+    first bounce (every launch's beside them), the launches of the main
+    path, the largest difference in ulp of 1 (directions only: the rest
+    is bit-equal)."""
     rows = checks[kind]
-    first = next(r for r in rows if r["form"] == "bounce")
+    first = next(r for r in rows if r["form"] in ("primary", "bounce 1"))
     entry = {"name": f"pt_{kind}", "route": "cuda",
              "source": "rtmm_tpu_torch/csrc/path_shade.cu",
-             "replaces": ("rtmm_tpu/render/pathtrace.py:342 (rand2) and "
-                          ":481-487 (next ray), XLA-fused"
-                          if kind == "spawn" else
-                          "rtmm_tpu/render/pathtrace.py:472-477 and "
-                          ":265-267 (shading), XLA-fused"),
+             "replaces": ("rtmm_tpu/render/pathtrace.py:265-267 (shading), "
+                          ":279 (bounce origin), :285-292 and :364-373 (pad, "
+                          "draw, next ray), XLA-fused"
+                          if kind == "primary" else
+                          "rtmm_tpu/render/pathtrace.py:342-350 (rand2) and "
+                          ":472-487 (hit, shading, next ray), XLA-fused"),
              "launches": launches,
              "max_abs_err": max(r["err_ulp"] for r in rows)
              * float(np.finfo(np.float32).eps),
-             "ms": first["ms"], "wrapper_ms": first["wrapper_ms"],
+             "ms": first["ms"], "floor_ms": first["floor_ms"],
+             "wrapper_ms": first["wrapper_ms"],
              "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
              "bound_by": first["bound"][1],
              "library_ms": None,
              "library": "none: torch.rand is Philox, not jax.random's "
-                        "threefry" if kind == "spawn" else "none",
+                        "threefry",
              "per_launch": rows}
     entry.update(extra)
     return entry
 
 
 def _pt_kernel_frame(card, name, tracer, ivp, img0, st0) -> dict:
-    """The frame with pt_spawn / pt_shade against the same frame with
+    """The frame with pt_primary / pt_bounce against the same frame with
     their plain versions on the card (bit for bit, or within config 5's
-    gate where cos / sin differ; live counts equal), and the stage ms of
-    both."""
+    gate where cos / sin differ; live counts equal), the stage ms of
+    both and the frame's kernel launch calls (torch.profiler's host
+    events)."""
     with _pt_plain():
         img_p, st_p = tracer.render(ivp)
         torch.cuda.synchronize()
@@ -2327,21 +2372,23 @@ def _pt_kernel_frame(card, name, tracer, ivp, img0, st0) -> dict:
     live_eq = torch.equal(st_p["live_rays_per_bounce"],
                           st0["live_rays_per_bounce"])
     stages = _frame_stages(tracer, ivp)
-    before = stages_plain.get("spawn", 0.0) + stages_plain.get("shading", 0.0)
-    after = stages.get("spawn", 0.0) + stages.get("shading", 0.0)
+    before = stages_plain.get("shade+spawn", 0.0)
+    after = stages.get("shade+spawn", 0.0)
+    launch_calls = _profiled(lambda: tracer.render(ivp))["launch_calls"]
     _log(f"[{name} pt kernels vs plain frame] {card}: frame bit-equal "
-         f"{same}; gate {gate}; live counts equal {live_eq}; spawn + "
-         f"shading stages {before:.4f} ms plain -> {after:.4f} ms kernels; "
+         f"{same}; gate {gate}; live counts equal {live_eq}; shade+spawn "
+         f"stage {before:.4f} ms plain -> {after:.4f} ms kernels; the "
+         f"frame's kernel launch calls {launch_calls}; "
          "stages plain: " + "; ".join(f"{k} {v:.4f} ms"
                                       for k, v in stages_plain.items())
          + "; stages kernels: " + "; ".join(f"{k} {v:.4f} ms"
                                            for k, v in stages.items()))
     if not (gate["ok"] and live_eq):
-        raise RuntimeError(f"{name}: the frame with pt_spawn / pt_shade "
+        raise RuntimeError(f"{name}: the frame with pt_primary / pt_bounce "
                            f"differs from the plain one: {gate}")
     return dict(bit_equal=same, gate=gate, stages_plain_ms=stages_plain,
-                stages_ms=stages, spawn_shading_plain_ms=before,
-                spawn_shading_ms=after)
+                stages_ms=stages, shade_spawn_plain_ms=before,
+                shade_spawn_ms=after, launch_calls=launch_calls)
 
 
 def phase_config5(card):
@@ -2397,16 +2444,16 @@ def phase_config5(card):
                                        False)
     first = checks[0]
 
-    # -- pt_spawn / pt_shade against their plain versions -------------------
+    # -- pt_primary / pt_bounce against their plain versions ----------------
     total = PT_SIZE * PT_SIZE
     draw = _pt_draw_check(card, total, PT_SPP * total, scene.device)
     pt_checks = _pt_checks(card, "config 5", prec)
     pt_frame = _pt_kernel_frame(card, "config 5", tracer, ivp, img0, st0)
     pt_entries = [_pt_entry(kind, got[f"pt_{kind}"], pt_checks,
-                            launches_per_frame=PT_BOUNCES + (kind == "shade"),
-                            frame=pt_frame, **({"draw": draw}
-                                               if kind == "spawn" else {}))
-                  for kind in ("spawn", "shade")]
+                            launches_per_frame=(1 if kind == "primary"
+                                                else PT_BOUNCES),
+                            frame=pt_frame, draw=draw)
+                  for kind in ("primary", "bounce")]
 
     # -- the reference's engine gate (bench.py:543-585) ------------------
     cfgv = dataclasses.replace(cfg, width=PT_VERIFY, height=PT_VERIFY)
@@ -2511,7 +2558,7 @@ def phase_config5_compressed(card, mesh, cfg, pt, ivp, img5, bytes5,
                              pt_entries):
     """Config 5 over a compressed scene (RTMM_PT_COMPRESSED=1,
     bench.py:152-156): K1d + K1c primaries, K2 compressed bounces,
-    pt_spawn / pt_shade (their checks added to pt_entries)."""
+    pt_primary / pt_bounce (their checks added to pt_entries)."""
     from rtmm_tpu_torch.models import scene as scene_mod
     from rtmm_tpu_torch.render import pathtrace
 
@@ -2801,15 +2848,15 @@ def phase_perray_engine(card, mesh5):
     perray = pathtrace.PathTracer(scene, cfg, pt)
     _reset_all()
     (a, sa), ms = _timed(lambda: perray.render(ivp))
-    _expect_launches("perray engine", {"pt_spawn": PT_BOUNCES,
-                                       "pt_shade": PT_BOUNCES + 1})
+    _expect_launches("perray engine", {"pt_primary": 1,
+                                       "pt_bounce": PT_BOUNCES})
     b, sb = pathtrace.PathTracer(scene, cfg, dataclasses.replace(
         pt, engine="pallas")).render(ivp)
     torch.cuda.synchronize()
     _expect_launches("pallas engine", {"tile_trace_raw": 1,
                                        "group_trace": None,
-                                       "pt_spawn": 2 * PT_BOUNCES,
-                                       "pt_shade": 2 * (PT_BOUNCES + 1),
+                                       "pt_primary": 2,
+                                       "pt_bounce": 2 * PT_BOUNCES,
                                        **_prologue(1, 2)})
     gate = _pt_gate(a, b)
     dlive = float((sa["live_rays_per_bounce"]
@@ -3217,8 +3264,8 @@ def phase_bench():
                                                "tile_frusta",
                                                "cluster_select")),
                              (5, "pathtrace", ("tile_trace_raw",
-                                               "group_trace", "pt_spawn",
-                                               "pt_shade", "tile_frusta",
+                                               "group_trace", "pt_primary",
+                                               "pt_bounce", "tile_frusta",
                                                "cluster_select"))):
         t0 = time.perf_counter()
         _reset_all()

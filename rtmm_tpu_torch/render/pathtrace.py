@@ -22,9 +22,10 @@ traversal to a Monte-Carlo path tracer:
     bounce's sort the state is cut to a per-bounce lane cap when the live
     rays fit it (the cut-off tail is dead and its radiance final), so
     later bounces pay for the live rays, not the buffer;
-  * per lane, the shading and the draw with the next ray are one kernel
-    each on a CUDA scene (ops/path_shade.py, csrc/path_shade.cu: pt_shade,
-    pt_spawn), in every engine; their plain versions on a CPU scene.
+  * per lane, the shading, the draw and the next ray are one kernel
+    launch for the primaries and one per bounce on a CUDA scene
+    (ops/path_shade.py, csrc/path_shade.cu: pt_primary, pt_bounce), in
+    every engine; their plain versions on a CPU scene.
 
 Secondary engines: "pallas" = the grouped trace kernel (ops/group_trace.py,
 csrc/group_trace.cu; its plain version on CPU tensors) with the tile
@@ -222,19 +223,6 @@ def _trace_perray(scene: DeviceScene, o, d, alive, cfg: RenderConfig,
     return bt, bn3, hit & alive
 
 
-def _albedo_power(albedo: np.ndarray, bounce: int) -> np.ndarray:
-    """albedo ** bounce in float32 by binary exponentiation, the product
-    order of jax.lax.integer_pow (x**3 = x * (x * x))."""
-    acc, x, y = None, albedo.astype(np.float32), bounce
-    while y > 0:
-        if y & 1:
-            acc = x if acc is None else (acc * x).astype(np.float32)
-        y >>= 1
-        if y > 0:
-            x = (x * x).astype(np.float32)
-    return np.ones(3, np.float32) if acc is None else acc
-
-
 @contextlib.contextmanager
 def _stage(timings, name: str):
     """CUDA-event span of one stage, kept in timings[name] (a list of
@@ -260,8 +248,9 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
 
     timings (a dict, CUDA scenes only): CUDA-event spans of the stages —
     "primary", "sort b", "trace b" (the engine's secondary trace of bounce
-    b, its window loop included), "spawn" (the draws and the next rays,
-    path_shade.spawn), "shading" (path_shade.shade)."""
+    b, its window loop included), "shade+spawn" (the primaries' and each
+    bounce's shading, draws and next rays: path_shade.primary and
+    path_shade.bounce, one launch each)."""
     height, width = cfg.height, cfg.width
     engine = _resolve_engine(scene, pt.engine)
     dev = scene.device
@@ -277,32 +266,28 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     n_bounce = pt.bounces
     cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
                   if pt.bounce_t_max else cfg)
-    albedo = np.asarray(cfg.mesh_color, np.float32)
-    bg = np.asarray(cfg.background, np.float32)
+    sc = path_shade.shading_consts(cfg)
     spp = pt.samples_per_pixel
     ovf_key = _overflow_stat_key(engine)
-
-    with _stage(timings, "shading"):
-        radiance0, nrm0 = path_shade.shade(bn0, d0, hit0, albedo, bg, cfg)
-    live0 = hit0.sum().to(torch.int32)
-    if n_bounce == 0:
-        # Primary-only tracing: no secondary state exists.
-        return radiance0.reshape(height, width, 3), {
-            "live_rays_per_bounce": live0[None].to(torch.float32),
-            ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
-
-    borigin0 = o0 + t0[:, None] * d0 + 1e-4 * nrm0
     # The per-ray state is padded to a GROUP multiple (dead pad lanes) and
     # tiled over the samples: lane g = sample * total + pixel.
     pad = (-n) % GROUP
     total = n + pad
     mtotal = spp * total
-    alive = torch.cat([hit0, torch.zeros(pad, dtype=torch.bool,
-                                         device=dev)]).repeat(spp)
+
+    # The primaries' radiance, bounce origins and first spawn (none for
+    # primary-only tracing: no secondary state exists).
+    with _stage(timings, "shade+spawn"):
+        radiance0, o, d, alive = path_shade.primary(
+            pt.seed, total, spp if n_bounce else 0, bn0, d0, o0, t0, hit0,
+            sc)
+    live0 = hit0.sum().to(torch.int32)
+    if n_bounce == 0:
+        return radiance0.reshape(height, width, 3), {
+            "live_rays_per_bounce": live0[None].to(torch.float32),
+            ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
+
     idx = torch.arange(mtotal, dtype=torch.int32, device=dev)
-    with _stage(timings, "spawn"):
-        o, d = path_shade.spawn(pt.seed, 0, total, nrm0, hit0, borigin0, d0,
-                                lanes=mtotal)
     rad = torch.zeros((mtotal, 3), dtype=torch.float32, device=dev)
 
     caps = _cap_schedule(mtotal, engine, n_bounce)
@@ -320,6 +305,7 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
             tails.append((rad[cap:], idx[cap:]))
             o, d, alive, rad, idx = (x[:cap] for x in (o, d, alive, rad,
                                                        idx))
+        hit = None
         with _stage(timings, f"trace {bounce}"):
             if engine == "perray":
                 bt, bn3, hit = _trace_perray(scene, o, d, alive, cfg_bounce,
@@ -328,26 +314,24 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
             else:
                 trace = (group_trace.trace_sorted if engine == "pallas"
                          else grouped.trace_sorted)
+                # bn3 (g, GROUP, 3) is read in place (K2's is a transposed
+                # view); the kernel computes alive & (t < BIG) & (t > 0).
                 bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
                                      d.reshape(-1, GROUP, 3),
                                      alive.reshape(-1, GROUP), cfg_bounce)
                 bt = bt.reshape(-1)
-                bn3 = bn3.reshape(-1, 3)
-                hit = alive & (bt < BIG) & (bt > 0.0)
         overflows.append(int(ovf))
-        with _stage(timings, "shading"):
+        spawn = bounce < n_bounce
+        with _stage(timings, "shade+spawn"):
             # Throughput of every lane read at this bounce: albedo ** b,
             # a constant (the reference's single material).
-            rad, nrm = path_shade.shade(
-                bn3, d, hit, albedo, bg, cfg, alive=alive, rad=rad,
-                tp_b=_albedo_power(albedo, bounce))
-        alive = hit
+            out = path_shade.bounce(pt.seed, bounce, total, bn3, d, o, bt,
+                                    alive, rad, idx, sc, hit=hit,
+                                    spawn=spawn)
+        rad, alive = out[0], out[1]
         live_counts.append(alive.sum().to(torch.int32))
-        if bounce == n_bounce:
-            break
-        with _stage(timings, "spawn"):
-            o, d = path_shade.spawn(pt.seed, bounce, total, nrm, hit, o, d,
-                                    idx=idx, t=bt)
+        if spawn:
+            o, d = out[2], out[3]
 
     # Undo the permutations: idx is a permutation of [0, mtotal).
     rad = torch.cat([rad] + [t[0] for t in reversed(tails)])

@@ -4,8 +4,9 @@ tables, in-kernel raygen or a ray matrix; windowed; raw with both ray
 sources) and the instanced frames built on it; the grouped trace (K2) on
 random ray groups over precomputed, compressed and compressed indexed
 scenes, and path-traced frames through both secondary engines; the
-path tracer's bounce kernels pt_spawn / pt_shade against their plain
-versions, per call and over whole frames; the prologue kernels
+path tracer's bounce kernels pt_primary / pt_bounce against their plain
+versions, per call (ragged lane counts, offset bases, pad pixels, every
+normals layout, empty states) and over whole frames; the prologue kernels
 tile_frusta / cluster_select against their plain versions, bit for bit,
 with their launch counts (each list path: the warp's, the block's shared
 order, past its capacity; NaN, +inf and tied distances; an apex per row;
@@ -529,77 +530,147 @@ def test_pathtrace_frame_on_card(cuda, compressed):
 
 
 def _pt_state(rng, n, dev):
-    """A bounce's state on the card: unnormalised normals (some zero),
-    unit rays, alive and hit masks, origins, t and radiance."""
+    """A bounce's state on the card: unnormalised normals (some zero, two
+    NaN), unit rays, alive and hit masks, origins, t (misses at BIG, hits
+    at 0 dead) and radiance."""
     def t(x):
         return torch.from_numpy(np.array(x)).to(dev)
 
     bn = (rng.normal(size=(n, 3)) * 2.5).astype(np.float32)
     bn[:8] = 0.0
     bn[8:16] = [0.0, 0.0, 0.9]
+    bn[16:18] = np.nan
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     alive = rng.random(n) < 0.7
+    tt = rng.uniform(0.0, 3.0, n).astype(np.float32)
+    tt[rng.random(n) < 0.3] = np.float32(1e30)
+    tt[18:24] = 0.0
     return dict(bn=t(bn), d=t(d), alive=t(alive),
                 hit=t(alive & (rng.random(n) < 0.6)),
                 o=t(rng.normal(size=(n, 3)).astype(np.float32)),
-                t=t(rng.uniform(0.0, 3.0, n).astype(np.float32)),
+                t=t(tt),
                 rad=t(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)))
+
+
+def _pt_same(k, p, dirs=()) -> bool:
+    """Kernel outputs against plain ones: bit for bit (NaN where NaN),
+    the entries in `dirs` (directions) bit for bit or within 2 ulp of 1
+    (cos / sin); uniforms compared as words."""
+    eps = float(np.finfo(np.float32).eps)
+    assert len(k) == len(p)
+    for j, (a, b) in enumerate(zip(k, p)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype == torch.float32 and j not in dirs:
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (
+                torch.isnan(a) & torch.isnan(b))
+            if not bool(same.all()):
+                return False
+        elif j in dirs:
+            if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                return False
+            if a.numel() and float((a - b).nan_to_num(0.0).abs().max()) > (
+                    2 * eps):
+                return False
+        elif not torch.equal(a, b):
+            return False
+    return True
 
 
 @pytest.mark.parametrize("seed", [0, 2**31 - 1])
 def test_path_shade_kernels_match_plain(cuda, seed):
-    """pt_spawn and pt_shade against their plain versions on the card, on
-    a 480x288 frame's lanes (total 139,264, 2 samples): uniforms,
-    origins, radiance and normals bit for bit; directions bit for bit or
-    within 2 ulp of 1 (cos / sin); one launch counted per call."""
+    """pt_primary and pt_bounce against their plain versions on the card,
+    on a 480x288 frame's lanes (total 139,264, 2 samples) and a bounce of
+    131,072 sorted lanes with K2's normals layout: uniforms, origins,
+    radiance, hit and alive bit for bit; directions bit for bit or within
+    2 ulp of 1 (cos / sin); one launch counted per call."""
     from rtmm_tpu_torch.ops import path_shade
     rng = np.random.default_rng(seed % 89)
-    cfg = RenderConfig()
-    albedo = np.asarray(cfg.mesh_color, np.float32)
-    bg = np.asarray(cfg.background, np.float32)
+    sc = path_shade.shading_consts(RenderConfig())
     n, total, spp = 138240, 139264, 2
     st = _pt_state(rng, n, cuda)
+    args = (seed, total, spp, st["bn"], st["d"], st["o"], st["t"], st["hit"],
+            sc)
     path_shade.reset_launches()
-    rad0, nrm0 = path_shade.shade(st["bn"], st["d"], st["hit"], albedo, bg,
-                                  cfg)
-    prad0, pnrm0 = path_shade.shade_plain(st["bn"], st["d"], st["hit"],
-                                          albedo, bg, cfg)
-    assert torch.equal(rad0, prad0) and torch.equal(nrm0, pnrm0)
-    k = path_shade.spawn(seed, 0, total, nrm0, st["hit"], st["o"], st["d"],
-                         lanes=spp * total, with_u=True)
-    p = path_shade.spawn_plain(seed, 0, total, nrm0, st["hit"], st["o"],
-                               st["d"], lanes=spp * total, with_u=True)
-    eps = float(np.finfo(np.float32).eps)
-    assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
-    assert torch.equal(k[0], p[0])
-    assert float((k[1] - p[1]).abs().max()) <= 2 * eps
-    m = 131072
+    k = path_shade.primary(*args, with_u=True)
+    p = path_shade.primary_plain(*args, with_u=True)
+    assert _pt_same(k, p, dirs=(2,))
+    m, group = 131072, 1024
     sb = _pt_state(rng, m, cuda)
     idx = torch.randperm(spp * total, device=cuda)[:m].to(torch.int32)
-    tp = pathtrace._albedo_power(albedo, 2)
-    kr = path_shade.shade(sb["bn"], sb["d"], sb["hit"], albedo, bg, cfg,
-                          alive=sb["alive"], rad=sb["rad"], tp_b=tp)
-    pr = path_shade.shade_plain(sb["bn"], sb["d"], sb["hit"], albedo, bg,
-                                cfg, alive=sb["alive"], rad=sb["rad"],
-                                tp_b=tp)
-    assert torch.equal(kr[0], pr[0]) and torch.equal(kr[1], pr[1])
-    k = path_shade.spawn(seed, 2, total, kr[1], sb["hit"], sb["o"], sb["d"],
-                         idx=idx, t=sb["t"], with_u=True)
-    p = path_shade.spawn_plain(seed, 2, total, kr[1], sb["hit"], sb["o"],
-                               sb["d"], idx=idx, t=sb["t"], with_u=True)
-    assert torch.equal(k[2].view(torch.int32), p[2].view(torch.int32))
-    assert torch.equal(k[0], p[0])
-    assert float((k[1] - p[1]).abs().max()) <= 2 * eps
+    bn = sb["bn"].reshape(-1, group, 3).transpose(1, 2).contiguous()
+    bargs = (seed, 2, total, bn.transpose(1, 2), sb["d"], sb["o"], sb["t"],
+             sb["alive"], sb["rad"], idx, sc)
+    k = path_shade.bounce(*bargs, with_u=True)
+    p = path_shade.bounce_plain(*bargs, with_u=True)
+    assert _pt_same(k, p, dirs=(3,))
+    k = path_shade.bounce(*bargs, spawn=False)
+    assert _pt_same(k, p[:2])
     torch.cuda.synchronize()
-    assert path_shade.LAUNCHES == {"pt_spawn": 2, "pt_shade": 2}
+    assert path_shade.LAUNCHES == {"pt_primary": 1, "pt_bounce": 2}
+
+
+# (pixels n, total, samples, offset of the base in lanes): lane counts
+# that are not a multiple of 4 or 32, a base 12 bytes off a 16-byte
+# boundary, pad pixels, 1 to 4 samples, no pixel at all.
+PT_PRIMARY_CASES = [(2999, 3072, 1, 1), (1001, 1003, 4, 1), (37, 37, 2, 0),
+                    (255, 1024, 2, 3), (0, 5, 2, 0), (513, 600, 0, 0)]
+# (lanes, normals layout, offset, spawn, hit given).
+PT_BOUNCE_CASES = [(3001, "rows", 1, True, False), (37, "rows", 1, True, True),
+                   (2048, "k2", 0, False, False), (4096, "grouped", 0, True,
+                                                   False),
+                   (1003, "rows", 3, False, True), (0, "rows", 0, True, False)]
+
+
+@pytest.mark.parametrize("case", range(len(PT_PRIMARY_CASES)))
+def test_pt_primary_edges_match_plain(cuda, case):
+    """pt_primary against its plain version on ragged lane counts, an
+    offset base, pad pixels, 0 to 4 samples and zero / NaN normals."""
+    from rtmm_tpu_torch.ops import path_shade
+    n, total, spp, off = PT_PRIMARY_CASES[case]
+    st = {k: v[off:] for k, v in _pt_state(np.random.default_rng(case),
+                                           n + off, cuda).items()}
+    args = (3, total, spp, st["bn"], st["d"], st["o"], st["t"], st["hit"],
+            path_shade.shading_consts(RenderConfig()))
+    for with_u in (False, True):
+        k = path_shade.primary(*args, with_u=with_u)
+        p = path_shade.primary_plain(*args, with_u=with_u)
+        assert _pt_same(k, p, dirs=(2,)), (case, with_u)
+
+
+@pytest.mark.parametrize("case", range(len(PT_BOUNCE_CASES)))
+def test_pt_bounce_edges_match_plain(cuda, case):
+    """pt_bounce against its plain version on ragged lane counts, an
+    offset base, every normals layout, the last bounce's form, the per-ray
+    engine's hit mask, zero / NaN normals and an empty state."""
+    from rtmm_tpu_torch.ops import path_shade
+    n, layout, off, spawn, given = PT_BOUNCE_CASES[case]
+    rng = np.random.default_rng(10 + case)
+    st = {k: v[off:] for k, v in _pt_state(rng, n + off, cuda).items()}
+    bn = st["bn"]
+    if layout == "k2":
+        bn = bn.reshape(-1, 1024, 3).transpose(1, 2).contiguous()
+        bn = bn.transpose(1, 2)
+    elif layout == "grouped":
+        bn = bn.reshape(-1, 1024, 3)
+    idx = torch.from_numpy(rng.permutation(8192)[:n].astype(np.int32)).to(
+        cuda)
+    args = (5, 1, 4096, bn, st["d"], st["o"], st["t"], st["alive"],
+            st["rad"], idx, path_shade.shading_consts(RenderConfig()))
+    kw = dict(hit=st["hit"] if given else None, spawn=spawn)
+    for with_u in ((False, True) if spawn else (False,)):
+        k = path_shade.bounce(*args, **kw, with_u=with_u)
+        p = path_shade.bounce_plain(*args, **kw, with_u=with_u)
+        assert _pt_same(k, p, dirs=(3,)), (case, with_u)
 
 
 @pytest.mark.parametrize("engine", ["pallas", "grouped"])
 def test_pathtrace_kernels_equal_plain_frame(cuda, engine, monkeypatch):
-    """A path-traced frame with pt_spawn / pt_shade against the same frame
-    with their plain versions on the card's tensors: within config 5's
-    gate (bit for bit where cos / sin agree), live counts equal."""
+    """A path-traced frame with pt_primary / pt_bounce against the same
+    frame with their plain versions on the card's tensors: within config
+    5's gate (bit for bit where cos / sin agree), live counts equal; one
+    pt_primary and one pt_bounce per bounce."""
     from rtmm_tpu_torch.ops import path_shade
     scene = _scene(0, 3, cuda)
     cfg = RenderConfig(width=96, height=64, sub_frusta=8)
@@ -610,9 +681,9 @@ def test_pathtrace_kernels_equal_plain_frame(cuda, engine, monkeypatch):
     path_shade.reset_launches()
     img, st = tracer.render(ivp)
     torch.cuda.synchronize()
-    assert path_shade.LAUNCHES == {"pt_spawn": 3, "pt_shade": 4}
-    monkeypatch.setattr(path_shade, "spawn", path_shade.spawn_plain)
-    monkeypatch.setattr(path_shade, "shade", path_shade.shade_plain)
+    assert path_shade.LAUNCHES == {"pt_primary": 1, "pt_bounce": 3}
+    monkeypatch.setattr(path_shade, "primary", path_shade.primary_plain)
+    monkeypatch.setattr(path_shade, "bounce", path_shade.bounce_plain)
     plain, pst = tracer.render(ivp)
     gate = image_gate(img, plain, per=500, big_per=500)
     print(f"bit-equal {torch.equal(img, plain)}; {gate}")

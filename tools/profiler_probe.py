@@ -3,7 +3,7 @@
 Runs chip_smoke.py's phases in order, in this one process, up to its
 phase 17 (the stats path). After each phase it profiles two canaries,
 each alone: one launch of a hand-written kernel (ops/path_shade.py's
-pt_shade on 64 lanes) and one PyTorch op. In place of phase 17 it
+pt_bounce on 64 lanes) and one PyTorch op. In place of phase 17 it
 profiles config 3's 32-frame orbit (render_frames) in this process, as
 phase 17 did before it moved to a process of its own, counts the
 trace's kernel events by name, and stops.
@@ -23,7 +23,7 @@ trace's kernel events by name, and stops.
 
 --drift SECONDS runs no phase: every 20 s for SECONDS, with the card kept
 busy in between, it profiles a 100 ms window that holds one PyTorch op
-and one pt_shade launch in its middle, and prints how far each traced
+and one pt_bounce launch in its middle, and prints how far each traced
 kernel starts from its launch call on the host's clock (the runtime
 event of the same correlation id; normally a few microseconds after
 it), or that the kernel is missing from the trace.
@@ -46,7 +46,6 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,25 +71,34 @@ def _trace(fn) -> dict:
             "by_name": dict(names)}
 
 
+def _canary():
+    """One pt_bounce launch on 64 random lanes, as a function."""
+    from rtmm_tpu_torch.config import RenderConfig
+    from rtmm_tpu_torch.ops import path_shade
+    n = 64
+    f3 = [torch.randn(n, 3, device="cuda") for _ in range(4)]
+    t = torch.rand(n, device="cuda")
+    alive = torch.rand(n, device="cuda") < 0.5
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    sc = path_shade.shading_consts(RenderConfig())
+    return lambda: path_shade.bounce(0, 1, n, f3[0], f3[1], f3[2], t, alive,
+                                     f3[3], idx, sc)
+
+
 def _drift(seconds: float) -> None:
     """Kernel start minus launch call start, per traced kernel, every 20 s
     of a busy process (see the module docstring)."""
-    from rtmm_tpu_torch.config import RenderConfig
-    from rtmm_tpu_torch.ops import path_shade
     from rtmm_tpu_torch.utils import stats
-    n = 64
-    lanes = (torch.randn(n, 3, device="cuda"),
-             torch.randn(n, 3, device="cuda"),
-             torch.rand(n, device="cuda") < 0.5)
-    albedo = np.full(3, 0.5, np.float32)
+    canary = _canary()
+    y = torch.randn(64, 3, device="cuda")
     x = torch.randn(4096, 4096, device="cuda")
     t0 = time.perf_counter()
     while True:
         with tempfile.TemporaryDirectory() as logdir:
             with stats.profiler_trace(logdir):
                 time.sleep(0.05)
-                lanes[0] * 2.0
-                path_shade.shade(*lanes, albedo, albedo, RenderConfig())
+                y * 2.0
+                canary()
                 torch.cuda.synchronize()
                 time.sleep(0.05)
             with open(os.path.join(logdir, "trace.json")) as f:
@@ -136,7 +144,6 @@ def main() -> int:
         _drift(args.drift)
         return 0
     import chip_smoke
-    from rtmm_tpu_torch.config import RenderConfig
     from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
                                     tile_trace)
 
@@ -148,19 +155,15 @@ def main() -> int:
             "s": round(time.perf_counter() - t_start, 1), **fields}),
             flush=True)
 
-    n = 64
-    lanes = (torch.randn(n, 3, device="cuda"),
-             torch.randn(n, 3, device="cuda"),
-             torch.rand(n, device="cuda") < 0.5)
-    albedo = np.full(3, 0.5, np.float32)
+    bounce_once = _canary()
+    y = torch.randn(64, 3, device="cuda")
 
     def canary(at: str) -> None:
         saved = dict(path_shade.LAUNCHES)
-        shade = _trace(lambda: path_shade.shade(*lanes, albedo, albedo,
-                                                RenderConfig()))
+        bounce = _trace(bounce_once)
         path_shade.LAUNCHES.update(saved)
-        op = _trace(lambda: lanes[0] * 2.0)
-        report(at, pt_shade=shade["kernels"], torch_op=op["kernels"])
+        op = _trace(lambda: y * 2.0)
+        report(at, pt_bounce=bounce["kernels"], torch_op=op["kernels"])
 
     queued = chip_smoke._queued_ms
 
