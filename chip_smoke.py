@@ -455,11 +455,8 @@ def _expect_launches(what: str, expected: dict) -> dict:
     """The launch counts since the last reset; exactly the kernels of
     `expected` must have launched, each as often as given (None: at least
     once), the prologue kernels (tile_frusta, cluster_select) included."""
-    from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
-                                    tile_trace)
-    counts = [*tile_trace.LAUNCHES.items(), *group_trace.LAUNCHES.items(),
-              *path_shade.LAUNCHES.items(), *prologue.LAUNCHES.items()]
-    got = {k: n for k, n in counts if n}
+    from rtmm_tpu_torch.utils import spans
+    got = {k: n for k, n in spans.launches().items() if n}
     wrong = set(got) != set(expected) or any(
         n is not None and got[k] != n for k, n in expected.items())
     _log(f"[{what}] launches {got}")
@@ -1942,12 +1939,8 @@ def _k2_recording(rec: dict, launches: bool):
 
 
 def _reset_all():
-    from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
-                                    tile_trace)
-    tile_trace.reset_launches()
-    group_trace.reset_launches()
-    path_shade.reset_launches()
-    prologue.reset_launches()
+    from rtmm_tpu_torch.utils import spans
+    spans.reset_launches()
 
 
 def _k2_check(card, name, launch, derive):
@@ -2758,7 +2751,8 @@ def _stats_orbit_child() -> None:
     from rtmm_tpu_torch.config import RenderConfig
     from rtmm_tpu_torch.io import loader
     from rtmm_tpu_torch.models import scene as scene_mod
-    from rtmm_tpu_torch.ops import prologue, tile_trace
+    from rtmm_tpu_torch.ops import tile_trace
+    from rtmm_tpu_torch.utils import spans
 
     with tempfile.TemporaryDirectory() as tmp:
         mesh = loader.load_micromesh(_save_config3(tmp))
@@ -2771,8 +2765,7 @@ def _stats_orbit_child() -> None:
     torch.cuda.synchronize()
     _reset_all()
     busy = _profiled(lambda: tile_trace.render_frames(scene, ivps, cfg))
-    launches = {k: n for k, n in (*tile_trace.LAUNCHES.items(),
-                                  *prologue.LAUNCHES.items()) if n}
+    launches = {k: n for k, n in spans.launches().items() if n}
     print(json.dumps({"busy": busy, "launches": launches}))
 
 

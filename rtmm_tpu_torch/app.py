@@ -19,6 +19,7 @@ frames are written as PNG.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -36,7 +37,7 @@ from .ops import tile_trace
 from .render import instances as inst_mod
 from .render import pathtrace
 from .render.renderer import FramePipeline, Renderer, _quantize
-from .utils import camera
+from .utils import camera, spans
 from .utils import stats as stats_mod
 
 
@@ -114,9 +115,11 @@ def main(argv=None) -> int:
     parser.add_argument("--spp", type=int, default=4,
                         help="samples per pixel for --pathtrace")
     parser.add_argument("--stats", action="store_true",
-                        help="print per-frame traversal statistics and "
-                             "write a step heatmap PNG (with --pathtrace: "
-                             "the live rays per bounce)")
+                        help="print per-frame traversal statistics, the "
+                             "frame's spans (host self ms per span, device "
+                             "ms of the stages, syncs, launches) and write "
+                             "a step heatmap PNG (with --pathtrace: the "
+                             "live rays per bounce and the spans)")
     parser.add_argument("--cache", action="store_true",
                         help="cache scene precompute keyed by asset hash")
     parser.add_argument("--dump-bary", action="store_true",
@@ -225,10 +228,13 @@ def main(argv=None) -> int:
     for frame in range(args.frames):
         ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
                                    cfg.fov_y_degrees, cfg.near, cfg.far)
-        done = pipe.submit(ivp)
+        before = spans.counters()
+        with spans.on() if args.stats else contextlib.nullcontext():
+            done = pipe.submit(ivp)
         if done is not None:
             write(done)
         if args.stats:
+            _print_spans(before)
             _frame_stats(ds, ivp, cfg, args, frame)
         tb.rotation_euler[1] -= np.radians(args.orbit)
     for done in pipe.drain():
@@ -252,6 +258,16 @@ def _dump_bary(path: str) -> int:
         path = resolved
     print(bary_mod.dump_bary(path))
     return 0
+
+
+def _print_spans(before: dict) -> None:
+    """--stats: the frame's spans (utils/spans.py): host self ms per span
+    name, device ms of the stage spans, and the syncs per site and kernel
+    launches since the counters() snapshot `before`."""
+    s = spans.summary(spans.take(), before)
+    for kind in ("host_self_ms", "device_ms"):
+        s[kind] = {k: round(v, 4) for k, v in sorted(s[kind].items())}
+    print("  spans:", s)
 
 
 def _frame_stats(ds, ivp, cfg: RenderConfig, args, frame: int) -> None:
@@ -288,8 +304,10 @@ def _path_trace(ds, cfg: RenderConfig, tb, args) -> int:
     for frame in range(args.frames):
         ivp = camera.inv_view_proj(tb, cfg.width, cfg.height,
                                    cfg.fov_y_degrees, cfg.near, cfg.far)
+        before = spans.counters()
         t0 = time.perf_counter()
-        img, stats = tracer.render(ivp)
+        with spans.on() if args.stats else contextlib.nullcontext():
+            img, stats = tracer.render(ivp)
         u8 = _quantize(img).cpu().numpy()
         dt = time.perf_counter() - t0
         path = os.path.join(args.out, f"frame_{frame:04d}.png")
@@ -300,6 +318,7 @@ def _path_trace(ds, cfg: RenderConfig, tb, args) -> int:
         if args.stats:
             print("  live rays/bounce:",
                   stats["live_rays_per_bounce"].tolist())
+            _print_spans(before)
         tb.rotation_euler[1] -= np.radians(args.orbit)
     return 0
 

@@ -79,11 +79,11 @@ import torch
 from .config import RenderConfig
 from .io import loader
 from .models import procedural, scene as scene_mod
-from .ops import group_trace, path_shade, prologue, tile_trace
+from .ops import tile_trace
 from .render import instances as inst_mod
 from .render.pathtrace import PathTraceConfig, PathTracer
 from .render.renderer import _quantize, render_image
-from .utils import camera
+from .utils import camera, spans
 from .utils.gate import cell_gate, image_gate, verify_plan
 
 # Frames per timed call (bench.py:43-58).
@@ -484,9 +484,7 @@ def _verify_pathtrace(scene, cfg: RenderConfig) -> dict:
 
 
 def _launches() -> dict:
-    return {k: v for k, v in {**tile_trace.LAUNCHES, **group_trace.LAUNCHES,
-                              **path_shade.LAUNCHES,
-                              **prologue.LAUNCHES}.items() if v}
+    return {k: v for k, v in spans.launches().items() if v}
 
 
 class _Stages:
@@ -627,10 +625,7 @@ def main(argv=None) -> int:
     else:
         _log("[bench card] none: --device cpu, the plain PyTorch versions "
              "(no number of this row is a device metric)")
-    tile_trace.reset_launches()
-    group_trace.reset_launches()
-    path_shade.reset_launches()
-    prologue.reset_launches()
+    spans.reset_launches()
     stages = _Stages(args.device)
     code = 0
     try:

@@ -23,7 +23,8 @@ windows of clusters until every group is done.
                      vectorised over 64 leaves x the gated rays, summing
                      only the table's non-zero terms, TERM_ROWS, as the
                      kernel does).
-  LAUNCHES           kernel launches so far, precomputed and compressed.
+  LAUNCHES           kernel launches so far, precomputed and compressed
+                     (a view of the counters in utils/spans.py).
 
 Semantics kept from the TPU kernel: the lagged pick order of its two-deep
 unit pipeline (u0 and u1 picked with the cluster's entry bounds; each
@@ -47,6 +48,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
+from ..utils import spans
 from . import _f32, culling, tiled
 from .tile_trace import _check
 from . import compressed as comp
@@ -62,12 +64,11 @@ BOX = NS * 16 + 16
 TINY = 1e-12
 
 KERNELS = ("group_trace", "group_trace_compressed")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = spans.LaunchView(KERNELS)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 def scene_tables(scene: DeviceScene):
@@ -288,73 +289,75 @@ def trace_group(rv, box, ccand, ccount, centry, t_in, n_in, meta, tables,
     the CUDA kernel runs (csrc/group_trace.cu); on CPU tensors the plain
     version; any other device raises.
     """
-    dev = rv.device
-    n_groups, kc = ccand.shape
-    n_cl = meta.shape[0]
-    for name, x in (("box", box), ("ccand", ccand), ("ccount", ccount),
-                    ("centry", centry), ("t_in", t_in), ("n_in", n_in),
-                    ("meta", meta), ("tables", tables), ("nrm", nrm_tab),
-                    ("corners", corners)):
-        if x is not None and x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rv on {dev}")
-    _check("rv", rv, torch.float32, (n_groups, 16, GROUP))
-    _check("box", box, torch.float32, (n_groups, BOX))
-    _check("ccand", ccand, torch.int32, (n_groups, kc))
-    _check("ccount", ccount, torch.int32, (n_groups,))
-    _check("centry", centry, torch.float32, (n_groups, kc))
-    _check("t_in", t_in, torch.float32, (n_groups, GROUP))
-    _check("n_in", n_in, torch.float32, (n_groups, 3, GROUP))
-    _check("meta", meta, torch.float32, (n_cl, 8, 128))
-    n_units = n_cl * UPC
-    grows = 0
-    if compressed:
-        grows = tables.shape[1] if tables.dim() == 3 else -1
-        if grows not in (comp.GRID_ROWS, comp.IDX_ROWS) or (
-                corners is None and grows != comp.IDX_ROWS):
-            raise ValueError(f"unit_grid has {grows} rows (records without "
-                             "index rows need shared corners)")
-        _check("unit_grid", tables, torch.float32,
-               (n_units, grows, comp.GRID_LANES))
-        if corners is not None:
-            _check("corners", corners, torch.int32, (3, LPU))
-        if nrm_tab is not None:
-            raise ValueError("compressed scenes derive their normals")
-    else:
-        _check("unit_q16", tables, torch.float32, (n_units, 16, 4 * LPU))
-        if nrm_tab is None or nrm_tab.dim() != 3 or nrm_tab.shape[2] < LPU:
-            raise ValueError("unit_nrm_pad (U, 8, >= 64) is required")
-        _check("unit_nrm_pad", nrm_tab, torch.float32,
-               (n_units, 8, nrm_tab.shape[2]))
-    if dev.type == "cpu":
-        return trace_group_plain(rv, box, ccand, ccount, centry, t_in, n_in,
-                                 meta, tables, nrm_tab, cfg,
-                                 compressed=compressed, corners=corners)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_group runs on cuda or cpu, not {dev}")
-    fn, err = _lib()
-    t_out = torch.empty_like(t_in)
-    n_out = torch.empty_like(n_in)
-    visits = torch.empty(n_groups, dtype=torch.int32, device=dev)
-    gated = torch.empty(n_groups, dtype=torch.int32, device=dev)
-    tests = torch.empty(n_groups, dtype=torch.int32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(rv.data_ptr(), box.data_ptr(), ccand.data_ptr(),
-                ccount.data_ptr(), centry.data_ptr(), t_in.data_ptr(),
-                n_in.data_ptr(), meta.data_ptr(),
-                None if compressed else tables.data_ptr(),
-                0 if compressed else nrm_tab.shape[2], ptr(nrm_tab),
-                tables.data_ptr() if compressed else None, grows,
-                ptr(corners), t_out.data_ptr(), n_out.data_ptr(),
-                visits.data_ptr(), gated.data_ptr(), tests.data_ptr(),
-                n_groups, kc, n_cl,
-                cfg.t_min, cfg.t_max, stream)
-    if rc != 0:
-        raise RuntimeError("group_trace kernel launch failed: "
-                           + err(rc).decode())
-    LAUNCHES["group_trace_compressed" if compressed else "group_trace"] += 1
-    return t_out, n_out, visits, gated, tests
+    with spans.span("rtmm.group_trace.trace_group"):
+        dev = rv.device
+        n_groups, kc = ccand.shape
+        n_cl = meta.shape[0]
+        for name, x in (("box", box), ("ccand", ccand), ("ccount", ccount),
+                        ("centry", centry), ("t_in", t_in), ("n_in", n_in),
+                        ("meta", meta), ("tables", tables), ("nrm", nrm_tab),
+                        ("corners", corners)):
+            if x is not None and x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, rv on {dev}")
+        _check("rv", rv, torch.float32, (n_groups, 16, GROUP))
+        _check("box", box, torch.float32, (n_groups, BOX))
+        _check("ccand", ccand, torch.int32, (n_groups, kc))
+        _check("ccount", ccount, torch.int32, (n_groups,))
+        _check("centry", centry, torch.float32, (n_groups, kc))
+        _check("t_in", t_in, torch.float32, (n_groups, GROUP))
+        _check("n_in", n_in, torch.float32, (n_groups, 3, GROUP))
+        _check("meta", meta, torch.float32, (n_cl, 8, 128))
+        n_units = n_cl * UPC
+        grows = 0
+        if compressed:
+            grows = tables.shape[1] if tables.dim() == 3 else -1
+            if grows not in (comp.GRID_ROWS, comp.IDX_ROWS) or (
+                    corners is None and grows != comp.IDX_ROWS):
+                raise ValueError(f"unit_grid has {grows} rows (records "
+                                 "without index rows need shared corners)")
+            _check("unit_grid", tables, torch.float32,
+                   (n_units, grows, comp.GRID_LANES))
+            if corners is not None:
+                _check("corners", corners, torch.int32, (3, LPU))
+            if nrm_tab is not None:
+                raise ValueError("compressed scenes derive their normals")
+        else:
+            _check("unit_q16", tables, torch.float32, (n_units, 16, 4 * LPU))
+            if nrm_tab is None or nrm_tab.dim() != 3 or nrm_tab.shape[2] < LPU:
+                raise ValueError("unit_nrm_pad (U, 8, >= 64) is required")
+            _check("unit_nrm_pad", nrm_tab, torch.float32,
+                   (n_units, 8, nrm_tab.shape[2]))
+        if dev.type == "cpu":
+            return trace_group_plain(rv, box, ccand, ccount, centry, t_in,
+                                     n_in, meta, tables, nrm_tab, cfg,
+                                     compressed=compressed, corners=corners)
+        if dev.type != "cuda":
+            raise ValueError(f"trace_group runs on cuda or cpu, not {dev}")
+        fn, err = _lib()
+        t_out = torch.empty_like(t_in)
+        n_out = torch.empty_like(n_in)
+        visits = torch.empty(n_groups, dtype=torch.int32, device=dev)
+        gated = torch.empty(n_groups, dtype=torch.int32, device=dev)
+        tests = torch.empty(n_groups, dtype=torch.int32, device=dev)
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(rv.data_ptr(), box.data_ptr(), ccand.data_ptr(),
+                    ccount.data_ptr(), centry.data_ptr(), t_in.data_ptr(),
+                    n_in.data_ptr(), meta.data_ptr(),
+                    None if compressed else tables.data_ptr(),
+                    0 if compressed else nrm_tab.shape[2], ptr(nrm_tab),
+                    tables.data_ptr() if compressed else None, grows,
+                    ptr(corners), t_out.data_ptr(), n_out.data_ptr(),
+                    visits.data_ptr(), gated.data_ptr(), tests.data_ptr(),
+                    n_groups, kc, n_cl,
+                    cfg.t_min, cfg.t_max, stream)
+        if rc != 0:
+            raise RuntimeError("group_trace kernel launch failed: "
+                               + err(rc).decode())
+        spans.launch("group_trace_compressed" if compressed
+                     else "group_trace")
+        return t_out, n_out, visits, gated, tests
 
 
 # ----------------------------------------------------------------------
@@ -367,21 +370,22 @@ def _grouped_cluster_window(scene: DeviceScene, omin, omax, remaining,
     to the lower cluster index. Returns (ccand (g, kc) int32, ccount (g,)
     int32, centry (g, kc) f32 ascending with +inf tail, new_remaining,
     next_bound (g,))."""
-    gap = torch.clamp_min(torch.maximum(
-        scene.cluster_aabb_min[None] - omax[:, None, :],
-        omin[:, None, :] - scene.cluster_aabb_max[None]), 0.0)
-    dist = culling._norm(gap)                                 # (g, C)
-    key, cidx = torch.sort(torch.where(remaining, dist, float("inf")),
-                           dim=1, stable=True)
-    key, cidx = key[:, :kc], cidx[:, :kc]
-    sel = key < float("inf")
-    taken = torch.zeros_like(remaining)
-    taken.scatter_(1, cidx, sel)
-    new_remaining = remaining & ~taken
-    next_bound = torch.where(new_remaining, dist, float("inf")).amin(dim=1)
-    return (cidx.to(torch.int32).contiguous(),
-            sel.sum(dim=1).to(torch.int32), key.contiguous(),
-            new_remaining, next_bound)
+    with spans.span("rtmm.group_trace._grouped_cluster_window"):
+        gap = torch.clamp_min(torch.maximum(
+            scene.cluster_aabb_min[None] - omax[:, None, :],
+            omin[:, None, :] - scene.cluster_aabb_max[None]), 0.0)
+        dist = culling._norm(gap)                                 # (g, C)
+        key, cidx = torch.sort(torch.where(remaining, dist, float("inf")),
+                               dim=1, stable=True)
+        key, cidx = key[:, :kc], cidx[:, :kc]
+        sel = key < float("inf")
+        taken = torch.zeros_like(remaining)
+        taken.scatter_(1, cidx, sel)
+        new_remaining = remaining & ~taken
+        next_bound = torch.where(new_remaining, dist, float("inf")).amin(dim=1)
+        return (cidx.to(torch.int32).contiguous(),
+                sel.sum(dim=1).to(torch.int32), key.contiguous(),
+                new_remaining, next_bound)
 
 
 def group_inputs(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
@@ -390,41 +394,43 @@ def group_inputs(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
     BOX), exit_t (g, GROUP) per-ray reach through the inflated scene box,
     clipped to [0, t_max], whole-group origin boxes omin / omax (g, 3),
     cl_hit (g, C) reach-box x cluster overlap of groups with live rays)."""
-    g = o.shape[0]
-    dev = o.device
-    aabb6 = tiled.scene_exit_aabb(scene)                      # (6,)
-    dsafe = _safe(d)
-    ex0 = torch.div(aabb6[0:3] - o, dsafe)
-    ex1 = torch.div(aabb6[3:6] - o, dsafe)
-    exit_t = torch.clamp(torch.maximum(ex0, ex1).amin(dim=-1), 0.0,
-                         cfg.t_max)
-    end = o + exit_t[..., None] * d                           # (g, GROUP, 3)
+    with spans.span("rtmm.group_trace.group_inputs"):
+        g = o.shape[0]
+        dev = o.device
+        aabb6 = tiled.scene_exit_aabb(scene)                      # (6,)
+        dsafe = _safe(d)
+        ex0 = torch.div(aabb6[0:3] - o, dsafe)
+        ex1 = torch.div(aabb6[3:6] - o, dsafe)
+        exit_t = torch.clamp(torch.maximum(ex0, ex1).amin(dim=-1), 0.0,
+                             cfg.t_max)
+        end = o + exit_t[..., None] * d                       # (g, GROUP, 3)
 
-    os_ = o.reshape(g, NS, SUB, 3)
-    es = end.reshape(g, NS, SUB, 3)
-    ls = live.reshape(g, NS, SUB, 1)
-    omin_s = torch.where(ls, os_, BIG).amin(dim=2)            # (g, NS, 3)
-    omax_s = torch.where(ls, os_, -BIG).amax(dim=2)
-    reach_min_s = torch.minimum(omin_s, torch.where(ls, es, BIG).amin(dim=2))
-    reach_max_s = torch.maximum(omax_s,
-                                torch.where(ls, es, -BIG).amax(dim=2))
-    omin, omax = omin_s.amin(dim=1), omax_s.amax(dim=1)
-    reach_min, reach_max = reach_min_s.amin(dim=1), reach_max_s.amax(dim=1)
-    cl_hit = ((reach_min[:, None, :] <= scene.cluster_aabb_max[None])
-              & (reach_max[:, None, :] >= scene.cluster_aabb_min[None])
-              ).all(dim=-1)
-    cl_hit &= scene.cluster_valid[None] & live.any(dim=1)[:, None]
+        os_ = o.reshape(g, NS, SUB, 3)
+        es = end.reshape(g, NS, SUB, 3)
+        ls = live.reshape(g, NS, SUB, 1)
+        omin_s = torch.where(ls, os_, BIG).amin(dim=2)            # (g, NS, 3)
+        omax_s = torch.where(ls, os_, -BIG).amax(dim=2)
+        reach_min_s = torch.minimum(omin_s,
+                                    torch.where(ls, es, BIG).amin(dim=2))
+        reach_max_s = torch.maximum(omax_s,
+                                    torch.where(ls, es, -BIG).amax(dim=2))
+        omin, omax = omin_s.amin(dim=1), omax_s.amax(dim=1)
+        reach_min, reach_max = reach_min_s.amin(dim=1), reach_max_s.amax(dim=1)
+        cl_hit = ((reach_min[:, None, :] <= scene.cluster_aabb_max[None])
+                  & (reach_max[:, None, :] >= scene.cluster_aabb_min[None])
+                  ).all(dim=-1)
+        cl_hit &= scene.cluster_valid[None] & live.any(dim=1)[:, None]
 
-    m = culling._cross(o, d)
-    rv = torch.cat([d, m, o, torch.ones((g, GROUP, 1), device=dev),
-                    torch.zeros((g, GROUP, 6), device=dev)], dim=-1)
-    rv = rv.transpose(1, 2).contiguous()                      # (g, 16, GROUP)
-    box = torch.cat([omin_s, omax_s, reach_min_s, reach_max_s,
-                     torch.zeros((g, NS, 4), device=dev)],
-                    dim=2).reshape(g, NS * 16)
-    box = torch.cat([box, aabb6.expand(g, 6),
-                     torch.zeros((g, 10), device=dev)], dim=1).contiguous()
-    return rv, box, exit_t, omin, omax, cl_hit
+        m = culling._cross(o, d)
+        rv = torch.cat([d, m, o, torch.ones((g, GROUP, 1), device=dev),
+                        torch.zeros((g, GROUP, 6), device=dev)], dim=-1)
+        rv = rv.transpose(1, 2).contiguous()                  # (g, 16, GROUP)
+        box = torch.cat([omin_s, omax_s, reach_min_s, reach_max_s,
+                         torch.zeros((g, NS, 4), device=dev)],
+                        dim=2).reshape(g, NS * 16)
+        box = torch.cat([box, aabb6.expand(g, 6),
+                         torch.zeros((g, 10), device=dev)], dim=1).contiguous()
+        return rv, box, exit_t, omin, omax, cl_hit
 
 
 def trace_sorted(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
@@ -449,7 +455,7 @@ def trace_sorted(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
     active = cl_hit.any(dim=1)
     remaining = cl_hit & active[:, None]
     extra = 0
-    while bool(active.any()):
+    while spans.sync("group_trace.window_any", active.any(), bool):
         ccand, ccount, centry, remaining, bound = _grouped_cluster_window(
             scene, omin, omax, remaining, kc)
         best_t, best_n, *_ = trace_group(
@@ -460,5 +466,5 @@ def trace_sorted(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
         worst = torch.where(best_t < BIG, best_t, exit_t).amax(dim=1)
         active = remaining.any(dim=1) & (worst >= bound)
         remaining = remaining & active[:, None]
-        extra += int(active.sum())
+        extra += spans.sync("group_trace.window_extra", active.sum())
     return best_t, best_n.transpose(1, 2), extra

@@ -27,6 +27,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
+from ..utils import spans
 from . import _f32, compressed, culling, tiled
 from .intersect import MT_UV_EPS
 
@@ -112,7 +113,8 @@ def trace_sorted(scene: DeviceScene, o: torch.Tensor, d: torch.Tensor,
                         device=o.device)
     best_n = torch.zeros((g, GROUP, 3), dtype=torch.float32,
                          device=o.device)
-    n_cand = int((count.clamp_max(c)).max()) if g else 0
+    n_cand = (spans.sync("grouped.candidates", count.clamp_max(c).max())
+              if g else 0)
     for g0 in range(0, g, GROUP_CHUNK):
         sl = slice(g0, g0 + GROUP_CHUNK)
         rv_c, live_c = rv[sl], live[sl]

@@ -23,7 +23,8 @@ csrc/path_shade.cu, each one of those fused regions.
                            once for the kernels.
   spawn_plain, shade_plain, rand2, cosine_dir, normalize_flip,
   direct_light             the plain pieces the two are composed of.
-  LAUNCHES                 kernel launches so far.
+  LAUNCHES                 kernel launches so far (a view of the
+                           counters in utils/spans.py).
 
 The wrappers take the kernel for CUDA tensors (building it on first use;
 a failed build or launch raises) and the plain version for CPU tensors.
@@ -40,18 +41,17 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..utils import threefry
+from ..utils import spans, threefry
 from . import culling, shading
 from .tile_trace import _check
 
 KERNELS = ("pt_primary", "pt_bounce")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = spans.LaunchView(KERNELS)
 BIG = 1e30
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 # ----------------------------------------------------------------------
@@ -361,38 +361,39 @@ def primary(seed: int, total: int, spp: int, bn, d, o, t, hit,
     bool), and the (spp * total, 2) uniforms last when with_u (drawn on
     every lane). CUDA tensors launch pt_primary (csrc/path_shade.cu); CPU
     tensors run primary_plain."""
-    n = hit.shape[0]
-    for name, x in (("bn", bn), ("d", d), ("o", o)):
-        _check(name, x, torch.float32, (n, 3))
-    _check("t", t, torch.float32, (n,))
-    _check("hit", hit, torch.bool, (n,))
-    if n > total or spp < 0:
-        raise ValueError(f"primary takes n <= total and spp >= 0 (n {n}, "
-                         f"total {total}, spp {spp})")
-    dev = hit.device
-    _same_device(dev, bn=bn, d=d, o=o, t=t)
-    if dev.type == "cpu":
-        return primary_plain(seed, total, spp, bn, d, o, t, hit, sc,
-                             with_u=with_u)
-    primary_fn, _, _, err = _lib()
-    lanes = spp * total
-    rad0 = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    # One allocation for o and d: each empty() is host time.
-    o_out, d_out = torch.empty((2, lanes, 3), dtype=torch.float32,
-                               device=dev)
-    alive = torch.empty(lanes, dtype=torch.bool, device=dev)
-    u = (torch.empty((lanes, 2), dtype=torch.float32, device=dev)
-         if with_u else None)
-    kb0, kb1 = _bounce_key(seed, 0)
-    rc = _call(dev, primary_fn, n, total, spp, kb0, kb1, bn.data_ptr(),
-               d.data_ptr(), o.data_ptr(), t.data_ptr(), hit.data_ptr(),
-               sc.packed(0), rad0.data_ptr(), o_out.data_ptr(),
-               d_out.data_ptr(), alive.data_ptr(), _ptr(u))
-    _raise(rc, "pt_primary", err)
-    if n or lanes:
-        LAUNCHES["pt_primary"] += 1
-    out = (rad0, o_out, d_out, alive)
-    return out + (u,) if with_u else out
+    with spans.span("rtmm.path_shade.primary"):
+        n = hit.shape[0]
+        for name, x in (("bn", bn), ("d", d), ("o", o)):
+            _check(name, x, torch.float32, (n, 3))
+        _check("t", t, torch.float32, (n,))
+        _check("hit", hit, torch.bool, (n,))
+        if n > total or spp < 0:
+            raise ValueError(f"primary takes n <= total and spp >= 0 (n {n}, "
+                             f"total {total}, spp {spp})")
+        dev = hit.device
+        _same_device(dev, bn=bn, d=d, o=o, t=t)
+        if dev.type == "cpu":
+            return primary_plain(seed, total, spp, bn, d, o, t, hit, sc,
+                                 with_u=with_u)
+        primary_fn, _, _, err = _lib()
+        lanes = spp * total
+        rad0 = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        # One allocation for o and d: each empty() is host time.
+        o_out, d_out = torch.empty((2, lanes, 3), dtype=torch.float32,
+                                   device=dev)
+        alive = torch.empty(lanes, dtype=torch.bool, device=dev)
+        u = (torch.empty((lanes, 2), dtype=torch.float32, device=dev)
+             if with_u else None)
+        kb0, kb1 = _bounce_key(seed, 0)
+        rc = _call(dev, primary_fn, n, total, spp, kb0, kb1, bn.data_ptr(),
+                   d.data_ptr(), o.data_ptr(), t.data_ptr(), hit.data_ptr(),
+                   sc.packed(0), rad0.data_ptr(), o_out.data_ptr(),
+                   d_out.data_ptr(), alive.data_ptr(), _ptr(u))
+        _raise(rc, "pt_primary", err)
+        if n or lanes:
+            spans.launch("pt_primary")
+        out = (rad0, o_out, d_out, alive)
+        return out + (u,) if with_u else out
 
 
 def bounce(seed: int, bounce: int, total: int, bn, d, o, t, alive, rad,
@@ -411,49 +412,51 @@ def bounce(seed: int, bounce: int, total: int, bn, d, o, t, alive, rad,
     and the (n, 2) uniforms last when with_u (drawn on every lane). o and
     idx are read only with spawn. CUDA tensors launch pt_bounce
     (csrc/path_shade.cu); CPU tensors run bounce_plain."""
-    n = alive.shape[0]
-    _check("alive", alive, torch.bool, (n,))
-    _check("t", t, torch.float32, (n,))
-    for name, x in (("d", d), ("rad", rad)) + ((("o", o),) if spawn else ()):
-        _check(name, x, torch.float32, (n, 3))
-    if spawn:
-        _check("idx", idx, torch.int32, (n,))
-    elif with_u:
-        raise ValueError("the uniforms are drawn only with spawn")
-    if hit is not None:
-        _check("hit", hit, torch.bool, (n,))
-    view = _normal_view(bn, n)
-    dev = alive.device
-    _same_device(dev, bn=bn, d=d, t=t, rad=rad, hit=hit,
-                 **({"o": o, "idx": idx} if spawn else {}))
-    if dev.type == "cpu":
-        return bounce_plain(seed, bounce, total, bn, d, o, t, alive, rad,
-                            idx, sc, hit=hit, spawn=spawn, with_u=with_u)
-    _, bounce_fn, _, err = _lib()
-    hit_out = torch.empty(n, dtype=torch.bool, device=dev)
-    o_out = d_out = u = None
-    if spawn:
-        # One allocation for rad, o and d: each empty() is host time.
-        rad_out, o_out, d_out = torch.empty((3, n, 3), dtype=torch.float32,
-                                            device=dev)
-        if with_u:
-            u = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    else:
-        rad_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    kb0, kb1 = _bounce_key(seed, bounce)
-    rc = _call(dev, bounce_fn, n, total, int(spawn), kb0, kb1,
-               bn.data_ptr(), *view, d.data_ptr(),
-               _ptr(o) if spawn else None, t.data_ptr(), alive.data_ptr(),
-               _ptr(hit), rad.data_ptr(), _ptr(idx) if spawn else None,
-               sc.packed(bounce), rad_out.data_ptr(), hit_out.data_ptr(),
-               _ptr(o_out), _ptr(d_out), _ptr(u))
-    _raise(rc, "pt_bounce", err)
-    if n:
-        LAUNCHES["pt_bounce"] += 1
-    if not spawn:
-        return rad_out, hit_out
-    out = (rad_out, hit_out, o_out, d_out)
-    return out + (u,) if with_u else out
+    with spans.span("rtmm.path_shade.bounce"):
+        n = alive.shape[0]
+        _check("alive", alive, torch.bool, (n,))
+        _check("t", t, torch.float32, (n,))
+        for name, x in (("d", d), ("rad", rad)) + (
+                (("o", o),) if spawn else ()):
+            _check(name, x, torch.float32, (n, 3))
+        if spawn:
+            _check("idx", idx, torch.int32, (n,))
+        elif with_u:
+            raise ValueError("the uniforms are drawn only with spawn")
+        if hit is not None:
+            _check("hit", hit, torch.bool, (n,))
+        view = _normal_view(bn, n)
+        dev = alive.device
+        _same_device(dev, bn=bn, d=d, t=t, rad=rad, hit=hit,
+                     **({"o": o, "idx": idx} if spawn else {}))
+        if dev.type == "cpu":
+            return bounce_plain(seed, bounce, total, bn, d, o, t, alive, rad,
+                                idx, sc, hit=hit, spawn=spawn, with_u=with_u)
+        _, bounce_fn, _, err = _lib()
+        hit_out = torch.empty(n, dtype=torch.bool, device=dev)
+        o_out = d_out = u = None
+        if spawn:
+            # One allocation for rad, o and d: each empty() is host time.
+            rad_out, o_out, d_out = torch.empty((3, n, 3), dtype=torch.float32,
+                                                device=dev)
+            if with_u:
+                u = torch.empty((n, 2), dtype=torch.float32, device=dev)
+        else:
+            rad_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        kb0, kb1 = _bounce_key(seed, bounce)
+        rc = _call(dev, bounce_fn, n, total, int(spawn), kb0, kb1,
+                   bn.data_ptr(), *view, d.data_ptr(),
+                   _ptr(o) if spawn else None, t.data_ptr(), alive.data_ptr(),
+                   _ptr(hit), rad.data_ptr(), _ptr(idx) if spawn else None,
+                   sc.packed(bounce), rad_out.data_ptr(), hit_out.data_ptr(),
+                   _ptr(o_out), _ptr(d_out), _ptr(u))
+        _raise(rc, "pt_bounce", err)
+        if n:
+            spans.launch("pt_bounce")
+        if not spawn:
+            return rad_out, hit_out
+        out = (rad_out, hit_out, o_out, d_out)
+        return out + (u,) if with_u else out
 
 
 def empty_launch(dev, blocks: int) -> None:

@@ -20,7 +20,8 @@ is two hand-written kernels, csrc/prologue.cu.
       tiled._select_nearest_clusters): the lists, their count, the entry
       distances; optionally the hit mask and the row's any-hit, and the
       window's cleared mask and next bound.
-  LAUNCHES  kernel launches so far.
+  LAUNCHES  kernel launches so far (a view of the counters in
+            utils/spans.py).
 
 The wrappers take the kernel for CUDA tensors (building it on first use;
 a failed build or launch raises) and the plain version for CPU tensors.
@@ -42,16 +43,16 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
 from . import culling
 
 KERNELS = ("tile_frusta", "cluster_select")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = spans.LaunchView(KERNELS)
 PACKS = (None, "plain", "raygen")
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 class Frusta(NamedTuple):
@@ -230,60 +231,62 @@ def tile_frusta(inv_view_proj, width: int, height: int, pw: int, ph: int,
     sub_normals is a view of them.
     CUDA tensors launch tile_frusta (csrc/prologue.cu); CPU tensors run
     tile_frusta_plain."""
-    if pack not in PACKS:
-        raise ValueError(f"pack must be one of {PACKS}, not {pack!r}")
-    if n_sub % n_rows or culling.TILE_H % n_rows or (
-            culling.TILE_W % (n_sub // n_rows)) or not 0 < n_sub <= 8:
-        raise ValueError(f"unsupported sub-cone grid {n_sub}/{n_rows}")
-    if pw % culling.TILE_W or ph % culling.TILE_H:
-        raise ValueError(f"padded size {pw}x{ph} is not a tile multiple")
-    m = torch.as_tensor(inv_view_proj, dtype=torch.float32)
-    if tuple(m.shape[-2:]) != (4, 4) or m.dim() not in (2, 3):
-        raise ValueError(f"inv_view_proj must be (4, 4) or (F, 4, 4), not "
-                         f"{tuple(m.shape)}")
-    tile0, n_tiles, n_all = _tile_range(pw, ph, tiles)
-    if pack == "raygen" and n_tiles != n_all:
-        raise ValueError("the raygen pack is built for whole frames")
-    if pack is not None:
-        if scene_aabb is None:
-            raise ValueError("a pack needs the scene box")
-        _device(m.device, scene_aabb=scene_aabb)
-        _check("scene_aabb", scene_aabb, torch.float32, (6,))
-    _device(m.device)
-    if m.device.type == "cpu":
-        return tile_frusta_plain(m, width, height, pw, ph, n_sub, n_rows,
-                                 tiles=tiles, pack=pack,
-                                 scene_aabb=scene_aabb)
-    from . import tiled
-    lead = m.shape[:-2]
-    mf = m.reshape(-1, 16).contiguous()
-    n_frames = mf.shape[0]
-    dev = m.device
+    with spans.span("rtmm.prologue.tile_frusta"):
+        if pack not in PACKS:
+            raise ValueError(f"pack must be one of {PACKS}, not {pack!r}")
+        if n_sub % n_rows or culling.TILE_H % n_rows or (
+                culling.TILE_W % (n_sub // n_rows)) or not 0 < n_sub <= 8:
+            raise ValueError(f"unsupported sub-cone grid {n_sub}/{n_rows}")
+        if pw % culling.TILE_W or ph % culling.TILE_H:
+            raise ValueError(f"padded size {pw}x{ph} is not a tile multiple")
+        m = torch.as_tensor(inv_view_proj, dtype=torch.float32)
+        if tuple(m.shape[-2:]) != (4, 4) or m.dim() not in (2, 3):
+            raise ValueError(f"inv_view_proj must be (4, 4) or (F, 4, 4), not "
+                             f"{tuple(m.shape)}")
+        tile0, n_tiles, n_all = _tile_range(pw, ph, tiles)
+        if pack == "raygen" and n_tiles != n_all:
+            raise ValueError("the raygen pack is built for whole frames")
+        if pack is not None:
+            if scene_aabb is None:
+                raise ValueError("a pack needs the scene box")
+            _device(m.device, scene_aabb=scene_aabb)
+            _check("scene_aabb", scene_aabb, torch.float32, (6,))
+        _device(m.device)
+        if m.device.type == "cpu":
+            return tile_frusta_plain(m, width, height, pw, ph, n_sub, n_rows,
+                                     tiles=tiles, pack=pack,
+                                     scene_aabb=scene_aabb)
+        from . import tiled
+        lead = m.shape[:-2]
+        mf = m.reshape(-1, 16).contiguous()
+        n_frames = mf.shape[0]
+        dev = m.device
 
-    def empty(*shape):
-        return torch.empty((*lead, *shape), dtype=torch.float32, device=dev)
+        def empty(*shape):
+            return torch.empty((*lead, *shape), dtype=torch.float32,
+                               device=dev)
 
-    apex = empty(3)
-    normals = empty(n_tiles, 4, 3)
-    sub, frus, pack_len = None, None, 0
-    if pack is None:
-        sub = empty(n_tiles, n_sub, 4, 3)
-    else:
-        pack_len = tiled.frustum_pack_len(n_sub, pack == "raygen")
-        frus = empty(n_tiles, pack_len)
-    fn, _, err, _ = _lib()
-    with torch.cuda.device(dev):
-        rc = fn(mf.data_ptr(), n_frames, float(width), float(height),
-                float(pw), float(ph), pw // culling.TILE_W, tile0, n_tiles,
-                n_sub, n_rows, _ptr(scene_aabb), pack_len,
-                int(pack == "raygen"), apex.data_ptr(), normals.data_ptr(),
-                _ptr(sub), _ptr(frus),
-                torch.cuda.current_stream(dev).cuda_stream)
-    _raise(rc, "tile_frusta", err)
-    LAUNCHES["tile_frusta"] += 1
-    if frus is not None:
-        sub = _pack_planes(frus, n_sub)
-    return Frusta(apex, normals, sub, frus)
+        apex = empty(3)
+        normals = empty(n_tiles, 4, 3)
+        sub, frus, pack_len = None, None, 0
+        if pack is None:
+            sub = empty(n_tiles, n_sub, 4, 3)
+        else:
+            pack_len = tiled.frustum_pack_len(n_sub, pack == "raygen")
+            frus = empty(n_tiles, pack_len)
+        fn, _, err, _ = _lib()
+        with torch.cuda.device(dev):
+            rc = fn(mf.data_ptr(), n_frames, float(width), float(height),
+                    float(pw), float(ph), pw // culling.TILE_W, tile0, n_tiles,
+                    n_sub, n_rows, _ptr(scene_aabb), pack_len,
+                    int(pack == "raygen"), apex.data_ptr(), normals.data_ptr(),
+                    _ptr(sub), _ptr(frus),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _raise(rc, "tile_frusta", err)
+        spans.launch("tile_frusta")
+        if frus is not None:
+            sub = _pack_planes(frus, n_sub)
+        return Frusta(apex, normals, sub, frus)
 
 
 def cluster_select(apex, planes, aabb_min, aabb_max, valid, kc: int, *,
@@ -311,59 +314,60 @@ def cluster_select(apex, planes, aabb_min, aabb_max, valid, kc: int, *,
     give the rows' cluster mask (R, C) and its any (R,). kc = 0 culls
     only. CUDA tensors launch cluster_select (csrc/prologue.cu); CPU
     tensors run cluster_select_plain."""
-    dev = apex.device
-    _device(dev, planes=planes, aabb_min=aabb_min, aabb_max=aabb_max,
-            valid=valid, remaining=remaining, row_valid=row_valid)
-    if remaining is None and (planes is None or valid is None):
-        raise ValueError("cluster_select needs planes and valid, or "
-                         "remaining")
-    n_apex = apex.shape[0]
-    n_rows = n_apex * rows_per_apex
-    n_cl = aabb_min.shape[0]
-    kc = min(kc, n_cl)
-    if window and not kc:
-        raise ValueError("the window form needs kc > 0")
-    apex, planes, remaining, row_valid = (
-        None if x is None else x.contiguous()
-        for x in (apex, planes, remaining, row_valid))
-    if planes is not None and planes.data_ptr() % 16:
-        planes = planes.clone()  # the kernel reads a row as 3 float4
-    _check("apex", apex, torch.float32, (n_apex, 3))
-    if planes is not None:
-        _check("planes", planes, torch.float32, (n_rows, 4, 3))
-    if remaining is not None:
-        _check("remaining", remaining, torch.bool, (n_rows, n_cl))
-    if row_valid is not None:
-        _check("row_valid", row_valid, torch.bool, (n_rows,))
-    _check("aabb_min", aabb_min, torch.float32, (n_cl, 3))
-    _check("aabb_max", aabb_max, torch.float32, (n_cl, 3))
-    if valid is not None:
-        _check("valid", valid, torch.bool, (n_cl,))
-    if dev.type == "cpu":
-        return cluster_select_plain(
-            apex, planes, aabb_min, aabb_max, valid, kc,
-            remaining=remaining, row_valid=row_valid,
-            rows_per_apex=rows_per_apex, want_hit=want_hit,
-            want_any=want_any, window=window)
+    with spans.span("rtmm.prologue.cluster_select"):
+        dev = apex.device
+        _device(dev, planes=planes, aabb_min=aabb_min, aabb_max=aabb_max,
+                valid=valid, remaining=remaining, row_valid=row_valid)
+        if remaining is None and (planes is None or valid is None):
+            raise ValueError("cluster_select needs planes and valid, or "
+                             "remaining")
+        n_apex = apex.shape[0]
+        n_rows = n_apex * rows_per_apex
+        n_cl = aabb_min.shape[0]
+        kc = min(kc, n_cl)
+        if window and not kc:
+            raise ValueError("the window form needs kc > 0")
+        apex, planes, remaining, row_valid = (
+            None if x is None else x.contiguous()
+            for x in (apex, planes, remaining, row_valid))
+        if planes is not None and planes.data_ptr() % 16:
+            planes = planes.clone()  # the kernel reads a row as 3 float4
+        _check("apex", apex, torch.float32, (n_apex, 3))
+        if planes is not None:
+            _check("planes", planes, torch.float32, (n_rows, 4, 3))
+        if remaining is not None:
+            _check("remaining", remaining, torch.bool, (n_rows, n_cl))
+        if row_valid is not None:
+            _check("row_valid", row_valid, torch.bool, (n_rows,))
+        _check("aabb_min", aabb_min, torch.float32, (n_cl, 3))
+        _check("aabb_max", aabb_max, torch.float32, (n_cl, 3))
+        if valid is not None:
+            _check("valid", valid, torch.bool, (n_cl,))
+        if dev.type == "cpu":
+            return cluster_select_plain(
+                apex, planes, aabb_min, aabb_max, valid, kc,
+                remaining=remaining, row_valid=row_valid,
+                rows_per_apex=rows_per_apex, want_hit=want_hit,
+                want_any=want_any, window=window)
 
-    def empty(shape, dtype, on=True):
-        return torch.empty(shape, dtype=dtype, device=dev) if on else None
+        def empty(shape, dtype, on=True):
+            return torch.empty(shape, dtype=dtype, device=dev) if on else None
 
-    hit = empty((n_rows, n_cl), torch.bool, want_hit)
-    any_ = empty((n_rows,), torch.bool, want_any)
-    ccand = empty((n_rows, kc), torch.int32, kc > 0)
-    ccount = empty((n_rows,), torch.int32, kc > 0)
-    centry = empty((n_rows, kc), torch.float32, kc > 0)
-    new_rem = empty((n_rows, n_cl), torch.bool, window)
-    bound = empty((n_rows,), torch.float32, window)
-    _, fn, err, _ = _lib()
-    with torch.cuda.device(dev):
-        rc = fn(n_rows, n_cl, kc, apex.data_ptr(), rows_per_apex,
-                _ptr(planes), _ptr(remaining), _ptr(row_valid),
-                aabb_min.data_ptr(), aabb_max.data_ptr(), _ptr(valid),
-                _ptr(hit), _ptr(any_), _ptr(ccand), _ptr(ccount),
-                _ptr(centry), _ptr(new_rem), _ptr(bound),
-                torch.cuda.current_stream(dev).cuda_stream)
-    _raise(rc, "cluster_select", err)
-    LAUNCHES["cluster_select"] += 1
-    return Selection(ccand, ccount, centry, hit, any_, new_rem, bound)
+        hit = empty((n_rows, n_cl), torch.bool, want_hit)
+        any_ = empty((n_rows,), torch.bool, want_any)
+        ccand = empty((n_rows, kc), torch.int32, kc > 0)
+        ccount = empty((n_rows,), torch.int32, kc > 0)
+        centry = empty((n_rows, kc), torch.float32, kc > 0)
+        new_rem = empty((n_rows, n_cl), torch.bool, window)
+        bound = empty((n_rows,), torch.float32, window)
+        _, fn, err, _ = _lib()
+        with torch.cuda.device(dev):
+            rc = fn(n_rows, n_cl, kc, apex.data_ptr(), rows_per_apex,
+                    _ptr(planes), _ptr(remaining), _ptr(row_valid),
+                    aabb_min.data_ptr(), aabb_max.data_ptr(), _ptr(valid),
+                    _ptr(hit), _ptr(any_), _ptr(ccand), _ptr(ccount),
+                    _ptr(centry), _ptr(new_rem), _ptr(bound),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _raise(rc, "cluster_select", err)
+        spans.launch("cluster_select")
+        return Selection(ccand, ccount, centry, hit, any_, new_rem, bound)

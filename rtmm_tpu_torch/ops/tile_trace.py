@@ -55,6 +55,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
+from ..utils import spans
 from . import _f32, compressed, culling, prologue, shading, tiled
 from .intersect import MT_UV_EPS
 
@@ -76,16 +77,15 @@ DET_ROWS = 3
 BATCH_TILE_CAP = 65536
 
 # Kernel launches so far, by entry: fused, windowed or raw, precomputed or
-# compressed tables.
+# compressed tables (a view of the counters in utils/spans.py).
 KERNELS = ("tile_trace_fused", "tile_trace_fused_compressed",
            "tile_trace_windowed", "tile_trace_windowed_compressed",
            "tile_trace_raw", "tile_trace_raw_compressed")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = spans.LaunchView(KERNELS)
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 # ----------------------------------------------------------------------
@@ -626,41 +626,42 @@ def trace_fused(ccand, ccount, centry, frus, meta, tables,
     int32). On CUDA tensors the CUDA kernel runs (csrc/tile_trace.cu); on
     CPU tensors the plain version.
     """
-    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
-                                  tables, cfg, compressed, corners)
-    n_rows, kc = ccand.shape
-    if (n_rows % tiles_per_frame or pw != tx * culling.TILE_W
-            or tiles_per_frame != tx * (ph // culling.TILE_H)):
-        raise ValueError("tile grid does not match the row count")
-    if dev.type == "cpu":
-        return trace_fused_plain(
-            ccand, ccount, centry, frus, meta, tables, cfg,
-            tiles_per_frame=tiles_per_frame, tx=tx, pw=pw, ph=ph,
-            raymat=raymat, compressed=compressed, corners=corners)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_fused runs on cuda or cpu, not {dev}")
-    params = shade_params(cfg)
-    fn, _, _, err_str = _lib()
-    n_frames = n_rows // tiles_per_frame
-    image = torch.empty((n_frames, ph, pw, 3), dtype=torch.float32,
-                        device=dev)
-    visits = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    eligible = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    hp = (ctypes.c_float * len(params))(*params.tolist())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
-                frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
-                None if compressed else tables.data_ptr(),
-                tables.data_ptr() if compressed else None, _ptr(corners),
-                grows, image.data_ptr(), visits.data_ptr(),
-                eligible.data_ptr(), n_rows, kc, frus.shape[1],
-                tiles_per_frame, tx, pw, ph, cfg.sub_frusta, cfg.sub_rows,
-                hp, len(params), stream)
-    _raise_on(rc, err_str)
-    LAUNCHES["tile_trace_fused_compressed" if compressed
-             else "tile_trace_fused"] += 1
-    return image, visits, eligible
+    with spans.span("rtmm.tile_trace.trace_fused"):
+        dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat,
+                                      meta, tables, cfg, compressed, corners)
+        n_rows, kc = ccand.shape
+        if (n_rows % tiles_per_frame or pw != tx * culling.TILE_W
+                or tiles_per_frame != tx * (ph // culling.TILE_H)):
+            raise ValueError("tile grid does not match the row count")
+        if dev.type == "cpu":
+            return trace_fused_plain(
+                ccand, ccount, centry, frus, meta, tables, cfg,
+                tiles_per_frame=tiles_per_frame, tx=tx, pw=pw, ph=ph,
+                raymat=raymat, compressed=compressed, corners=corners)
+        if dev.type != "cuda":
+            raise ValueError(f"trace_fused runs on cuda or cpu, not {dev}")
+        params = shade_params(cfg)
+        fn, _, _, err_str = _lib()
+        n_frames = n_rows // tiles_per_frame
+        image = torch.empty((n_frames, ph, pw, 3), dtype=torch.float32,
+                            device=dev)
+        visits = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        eligible = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        hp = (ctypes.c_float * len(params))(*params.tolist())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
+                    frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
+                    None if compressed else tables.data_ptr(),
+                    tables.data_ptr() if compressed else None, _ptr(corners),
+                    grows, image.data_ptr(), visits.data_ptr(),
+                    eligible.data_ptr(), n_rows, kc, frus.shape[1],
+                    tiles_per_frame, tx, pw, ph, cfg.sub_frusta, cfg.sub_rows,
+                    hp, len(params), stream)
+        _raise_on(rc, err_str)
+        spans.launch("tile_trace_fused_compressed" if compressed
+                     else "tile_trace_fused")
+        return image, visits, eligible
 
 
 def trace_windowed(ccand, ccount, centry, frus, raymat, carry, meta, tables,
@@ -676,48 +677,49 @@ def trace_windowed(ccand, ccount, centry, frus, raymat, carry, meta, tables,
     through. On CUDA tensors the CUDA kernel runs; on CPU tensors the
     plain version.
     """
-    if raymat is None:
-        raise ValueError("the windowed mode takes its rays from raymat")
-    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
-                                  tables, cfg, compressed, corners)
-    n_rows, kc = ccand.shape
-    t_in, n_in, vis_in, elig_in = carry
-    _check("t_in", t_in, torch.float32, (n_rows, TILE))
-    _check("n_in", n_in, torch.float32, (n_rows, 3, TILE))
-    _check("vis_in", vis_in, torch.int32, (n_rows,))
-    _check("elig_in", elig_in, torch.int32, (n_rows,))
-    for name, x in (("t_in", t_in), ("n_in", n_in), ("vis_in", vis_in),
-                    ("elig_in", elig_in)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, frus on {dev}")
-    if dev.type == "cpu":
-        return trace_windowed_plain(ccand, ccount, centry, frus, raymat,
-                                    carry, meta, tables, cfg,
-                                    compressed=compressed, corners=corners)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_windowed runs on cuda or cpu, not {dev}")
-    params = shade_params(cfg)
-    _, fn, _, err_str = _lib()
-    t_out = torch.empty_like(t_in)
-    n_out = torch.empty_like(n_in)
-    vis_out = torch.empty_like(vis_in)
-    elig_out = torch.empty_like(elig_in)
-    hp = (ctypes.c_float * len(params))(*params.tolist())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
-                frus.data_ptr(), raymat.data_ptr(), meta.data_ptr(),
-                None if compressed else tables.data_ptr(),
-                tables.data_ptr() if compressed else None, _ptr(corners),
-                grows, t_in.data_ptr(), n_in.data_ptr(), vis_in.data_ptr(),
-                elig_in.data_ptr(), t_out.data_ptr(), n_out.data_ptr(),
-                vis_out.data_ptr(), elig_out.data_ptr(), n_rows, kc,
-                frus.shape[1], cfg.sub_frusta, cfg.sub_rows, hp,
-                len(params), stream)
-    _raise_on(rc, err_str)
-    LAUNCHES["tile_trace_windowed_compressed" if compressed
-             else "tile_trace_windowed"] += 1
-    return t_out, n_out, vis_out, elig_out
+    with spans.span("rtmm.tile_trace.trace_windowed"):
+        if raymat is None:
+            raise ValueError("the windowed mode takes its rays from raymat")
+        dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat,
+                                      meta, tables, cfg, compressed, corners)
+        n_rows, kc = ccand.shape
+        t_in, n_in, vis_in, elig_in = carry
+        _check("t_in", t_in, torch.float32, (n_rows, TILE))
+        _check("n_in", n_in, torch.float32, (n_rows, 3, TILE))
+        _check("vis_in", vis_in, torch.int32, (n_rows,))
+        _check("elig_in", elig_in, torch.int32, (n_rows,))
+        for name, x in (("t_in", t_in), ("n_in", n_in), ("vis_in", vis_in),
+                        ("elig_in", elig_in)):
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, frus on {dev}")
+        if dev.type == "cpu":
+            return trace_windowed_plain(ccand, ccount, centry, frus, raymat,
+                                        carry, meta, tables, cfg,
+                                        compressed=compressed, corners=corners)
+        if dev.type != "cuda":
+            raise ValueError(f"trace_windowed runs on cuda or cpu, not {dev}")
+        params = shade_params(cfg)
+        _, fn, _, err_str = _lib()
+        t_out = torch.empty_like(t_in)
+        n_out = torch.empty_like(n_in)
+        vis_out = torch.empty_like(vis_in)
+        elig_out = torch.empty_like(elig_in)
+        hp = (ctypes.c_float * len(params))(*params.tolist())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
+                    frus.data_ptr(), raymat.data_ptr(), meta.data_ptr(),
+                    None if compressed else tables.data_ptr(),
+                    tables.data_ptr() if compressed else None, _ptr(corners),
+                    grows, t_in.data_ptr(), n_in.data_ptr(), vis_in.data_ptr(),
+                    elig_in.data_ptr(), t_out.data_ptr(), n_out.data_ptr(),
+                    vis_out.data_ptr(), elig_out.data_ptr(), n_rows, kc,
+                    frus.shape[1], cfg.sub_frusta, cfg.sub_rows, hp,
+                    len(params), stream)
+        _raise_on(rc, err_str)
+        spans.launch("tile_trace_windowed_compressed" if compressed
+                     else "tile_trace_windowed")
+        return t_out, n_out, vis_out, elig_out
 
 
 def trace_raw(ccand, ccount, centry, frus, meta, tables, cfg: RenderConfig,
@@ -738,35 +740,36 @@ def trace_raw(ccand, ccount, centry, frus, meta, tables, cfg: RenderConfig,
     rows with ccount 0 are misses. On CUDA tensors the CUDA kernel runs;
     on CPU tensors the plain version.
     """
-    dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat, meta,
-                                  tables, cfg, compressed, corners,
-                                  xform=True)
-    n_rows, kc = ccand.shape
-    if dev.type == "cpu":
-        return trace_raw_plain(ccand, ccount, centry, frus, meta, tables,
-                               cfg, raymat=raymat, compressed=compressed,
-                               corners=corners)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_raw runs on cuda or cpu, not {dev}")
-    params = shade_params(cfg)
-    _, _, fn, err_str = _lib()
-    out = torch.empty((n_rows, 4, TILE), dtype=torch.float32, device=dev)
-    visits = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    eligible = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    hp = (ctypes.c_float * len(params))(*params.tolist())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
-                frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
-                None if compressed else tables.data_ptr(),
-                tables.data_ptr() if compressed else None, _ptr(corners),
-                grows, out.data_ptr(), visits.data_ptr(),
-                eligible.data_ptr(), n_rows, kc, frus.shape[1],
-                cfg.sub_frusta, cfg.sub_rows, hp, len(params), stream)
-    _raise_on(rc, err_str)
-    LAUNCHES["tile_trace_raw_compressed" if compressed
-             else "tile_trace_raw"] += 1
-    return out, visits, eligible
+    with spans.span("rtmm.tile_trace.trace_raw"):
+        dev, _, grows = _check_common(ccand, ccount, centry, frus, raymat,
+                                      meta, tables, cfg, compressed, corners,
+                                      xform=True)
+        n_rows, kc = ccand.shape
+        if dev.type == "cpu":
+            return trace_raw_plain(ccand, ccount, centry, frus, meta, tables,
+                                   cfg, raymat=raymat, compressed=compressed,
+                                   corners=corners)
+        if dev.type != "cuda":
+            raise ValueError(f"trace_raw runs on cuda or cpu, not {dev}")
+        params = shade_params(cfg)
+        _, _, fn, err_str = _lib()
+        out = torch.empty((n_rows, 4, TILE), dtype=torch.float32, device=dev)
+        visits = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        eligible = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        hp = (ctypes.c_float * len(params))(*params.tolist())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(ccand.data_ptr(), ccount.data_ptr(), centry.data_ptr(),
+                    frus.data_ptr(), _ptr(raymat), meta.data_ptr(),
+                    None if compressed else tables.data_ptr(),
+                    tables.data_ptr() if compressed else None, _ptr(corners),
+                    grows, out.data_ptr(), visits.data_ptr(),
+                    eligible.data_ptr(), n_rows, kc, frus.shape[1],
+                    cfg.sub_frusta, cfg.sub_rows, hp, len(params), stream)
+        _raise_on(rc, err_str)
+        spans.launch("tile_trace_raw_compressed" if compressed
+                     else "tile_trace_raw")
+        return out, visits, eligible
 
 
 # ----------------------------------------------------------------------
@@ -785,8 +788,9 @@ def cluster_lists(scene: DeviceScene, fi: tiled.FrameInputs, kc: int):
     (tiles, kc) int32, ccount (tiles,) int32, centry (tiles, kc) f32),
     with a leading frame axis when fi is batched. One cluster_select
     launch on the card."""
-    return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc,
-                                window=False)[:3]
+    with spans.span("rtmm.tile_trace.cluster_lists"):
+        return tiled.cluster_window(scene, fi.apex, fi.cluster_hit, kc,
+                                    window=False)[:3]
 
 
 def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
@@ -799,21 +803,22 @@ def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
     rows are f*tiles .. (f+1)*tiles - 1, bit for bit frame_inputs'.
     Two kernel launches on the card: tile_frusta (the frusta and the
     pack) and cluster_select (the cull and the lists)."""
-    pw, ph = tiled.padded_size(cfg.width, cfg.height)
-    ivps = torch.as_tensor(inv_view_projs, dtype=torch.float32,
-                           device=scene.device)
-    if ivps.dim() != 3 or ivps.shape[1:] != (4, 4):
-        raise ValueError(f"inv_view_projs must be (F, 4, 4), not "
-                         f"{tuple(ivps.shape)}")
-    fr = prologue.tile_frusta(ivps, cfg.width, cfg.height, pw, ph,
-                              cfg.sub_frusta, cfg.sub_rows, pack="raygen",
-                              scene_aabb=scene.exit_aabb)
-    n_tiles = fr.normals.shape[1]
-    sel = prologue.cluster_select(
-        fr.apex, fr.normals.reshape(-1, 4, 3), scene.cluster_aabb_min,
-        scene.cluster_aabb_max, scene.cluster_valid, kc,
-        rows_per_apex=n_tiles)
-    return sel.ccand, sel.ccount, sel.centry, fr.frus.flatten(0, 1)
+    with spans.span("rtmm.tile_trace.frames_inputs"):
+        pw, ph = tiled.padded_size(cfg.width, cfg.height)
+        ivps = torch.as_tensor(inv_view_projs, dtype=torch.float32,
+                               device=scene.device)
+        if ivps.dim() != 3 or ivps.shape[1:] != (4, 4):
+            raise ValueError(f"inv_view_projs must be (F, 4, 4), not "
+                             f"{tuple(ivps.shape)}")
+        fr = prologue.tile_frusta(ivps, cfg.width, cfg.height, pw, ph,
+                                  cfg.sub_frusta, cfg.sub_rows, pack="raygen",
+                                  scene_aabb=scene.exit_aabb)
+        n_tiles = fr.normals.shape[1]
+        sel = prologue.cluster_select(
+            fr.apex, fr.normals.reshape(-1, 4, 3), scene.cluster_aabb_min,
+            scene.cluster_aabb_max, scene.cluster_valid, kc,
+            rows_per_apex=n_tiles)
+        return sel.ccand, sel.ccount, sel.centry, fr.frus.flatten(0, 1)
 
 
 def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
@@ -828,11 +833,12 @@ def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
 def ray_frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig):
     """One frame's inputs with a ray matrix: (fi, frus without raygen
     scalars, raymat (tiles, 8, TILE) rows [d, a x d, s, 1])."""
-    ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
-                          device=scene.device)
-    fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True,
-                                  kernels=True)
-    return fi, fi.frus, fi.raymat.transpose(1, 2).contiguous()
+    with spans.span("rtmm.tile_trace.ray_frame_inputs"):
+        ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
+                              device=scene.device)
+        fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True,
+                                      kernels=True)
+        return fi, fi.frus, fi.raymat.transpose(1, 2).contiguous()
 
 
 def _launch(scene, cfg, rows, raymat=None):
@@ -915,26 +921,27 @@ def render_frame(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     kernel_clusters_per_window clusters, with in-kernel raygen unless
     cfg.kernel_raygen is False (then from a ray matrix); windowed
     otherwise."""
-    kc = clusters_per_window(scene, cfg)
-    if scene.num_clusters > kc:
-        img, visits, eligible, windows = render_windowed(
-            scene, inv_view_proj, cfg, kc)
-    else:
-        if cfg.kernel_raygen:
-            image, visits, eligible = _launch(
-                scene, cfg, frame_inputs(scene, inv_view_proj, cfg, kc))
+    with spans.span("rtmm.tile_trace.render_frame"):
+        kc = clusters_per_window(scene, cfg)
+        if scene.num_clusters > kc:
+            img, visits, eligible, windows = render_windowed(
+                scene, inv_view_proj, cfg, kc)
         else:
-            fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
-            image, visits, eligible = _launch(
-                scene, cfg, (*cluster_lists(scene, fi, kc), frus), raymat)
-        img, windows = image[0, :cfg.height, :cfg.width], 1
-    if not with_stats:
-        return img
-    pw, ph = tiled.padded_size(cfg.width, cfg.height)
-    shape = (ph // culling.TILE_H, pw // culling.TILE_W)
-    return img, {"kernel_unit_visits": visits.reshape(shape),
-                 "kernel_unit_eligible": eligible.reshape(shape),
-                 "windows": windows}
+            if cfg.kernel_raygen:
+                image, visits, eligible = _launch(
+                    scene, cfg, frame_inputs(scene, inv_view_proj, cfg, kc))
+            else:
+                fi, frus, raymat = ray_frame_inputs(scene, inv_view_proj, cfg)
+                image, visits, eligible = _launch(
+                    scene, cfg, (*cluster_lists(scene, fi, kc), frus), raymat)
+            img, windows = image[0, :cfg.height, :cfg.width], 1
+        if not with_stats:
+            return img
+        pw, ph = tiled.padded_size(cfg.width, cfg.height)
+        shape = (ph // culling.TILE_H, pw // culling.TILE_W)
+        return img, {"kernel_unit_visits": visits.reshape(shape),
+                     "kernel_unit_eligible": eligible.reshape(shape),
+                     "windows": windows}
 
 
 def frames_per_launch(cfg: RenderConfig, f_total: int) -> int:
@@ -957,18 +964,19 @@ def render_frames(scene: DeviceScene, inv_view_projs,
     by concatenating their tile rows, and each chunk's inputs are built in
     one pass (frames_inputs). Windowed scenes (and ray-matrix input)
     render frame by frame. Returns (F, H, W, 3) f32."""
-    kc = clusters_per_window(scene, cfg)
-    if not isinstance(inv_view_projs, torch.Tensor):
-        inv_view_projs = torch.from_numpy(np.asarray(inv_view_projs))
-    ivps = inv_view_projs.to(device=scene.device, dtype=torch.float32)
-    f_total = ivps.shape[0]
-    if scene.num_clusters > kc or not cfg.kernel_raygen:
-        return torch.stack([render_frame(scene, ivps[i], cfg)
-                            for i in range(f_total)])
-    f = frames_per_launch(cfg, f_total)
-    out = []
-    for c0 in range(0, f_total, f):
-        rows = frames_inputs(scene, ivps[c0:c0 + f], cfg, kc)
-        out.append(_launch(scene, cfg, rows)[0])
-    images = out[0] if len(out) == 1 else torch.cat(out)
-    return images[:, :cfg.height, :cfg.width]
+    with spans.span("rtmm.tile_trace.render_frames"):
+        kc = clusters_per_window(scene, cfg)
+        if not isinstance(inv_view_projs, torch.Tensor):
+            inv_view_projs = torch.from_numpy(np.asarray(inv_view_projs))
+        ivps = inv_view_projs.to(device=scene.device, dtype=torch.float32)
+        f_total = ivps.shape[0]
+        if scene.num_clusters > kc or not cfg.kernel_raygen:
+            return torch.stack([render_frame(scene, ivps[i], cfg)
+                                for i in range(f_total)])
+        f = frames_per_launch(cfg, f_total)
+        out = []
+        for c0 in range(0, f_total, f):
+            rows = frames_inputs(scene, ivps[c0:c0 + f], cfg, kc)
+            out.append(_launch(scene, cfg, rows)[0])
+        images = out[0] if len(out) == 1 else torch.cat(out)
+        return images[:, :cfg.height, :cfg.width]

@@ -35,6 +35,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
+from ..utils import spans
 from . import _f32, compressed, culling, intersect, prologue, raygen, shading
 
 BIG = 1e30
@@ -343,7 +344,7 @@ def trace_windowed_clusters(scene: DeviceScene, fi: FrameInputs,
     remaining = fi.cluster_hit & active[:, None]
     best_t, best_n = init_t, init_n
     windows = 0
-    while bool(active.any()):
+    while spans.sync("tiled.cluster_window", active.any(), bool):
         ccand, ccount, centry, remaining, bound = cluster_window(
             scene, fi.apex, remaining, kc)
         best_t, best_n = trace_window(ccand, ccount, centry, best_t, best_n)
@@ -417,7 +418,7 @@ def trace_windowed(scene: DeviceScene, fi: FrameInputs, cfg: RenderConfig,
     remaining = fi.cluster_hit & active[:, None]
     best_t, best_n = init_t, init_n
     windows = 0
-    while bool(active.any()):
+    while spans.sync("tiled.candidate_window", active.any(), bool):
         cand, count, entry, remaining, bound = candidate_window(
             scene, fi.apex, fi.normals, remaining, kc)
         best_t, best_n = trace_window(cand, count, entry, best_t, best_n)
@@ -438,7 +439,7 @@ def candidate_counts(scene: DeviceScene, inv_view_proj,
     remaining = fi.cluster_hit
     total = torch.zeros(remaining.shape[0], dtype=torch.int32,
                         device=remaining.device)
-    while bool(remaining.any()):
+    while spans.sync("tiled.candidate_counts", remaining.any(), bool):
         _, count, _, remaining, _ = candidate_window(
             scene, fi.apex, fi.normals, remaining, kc)
         total = total + count
@@ -569,7 +570,8 @@ def xla_trace_frame(scene: DeviceScene, fi: FrameInputs,
             sl = slice(c0, c0 + tile_chunk)
             rm, cnd, cnt = fi.raymat[sl], cand[sl], count[sl]
             bt, bn = best_t[sl], best_n[sl]
-            n_slots = min(cand.shape[1], int(cnt.max()))
+            n_slots = min(cand.shape[1],
+                          spans.sync("tiled.slots", cnt.max()))
             for g0 in range(0, n_slots, SLOT_GROUP):
                 g1 = min(g0 + SLOT_GROUP, n_slots)
                 rays, q, nrm = candidate_group(scene, fi.q_frame, rm,

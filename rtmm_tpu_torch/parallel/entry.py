@@ -25,8 +25,8 @@ import torch.distributed as dist
 
 from ..config import RenderConfig
 from ..models import procedural, scene as scene_mod
-from ..ops import culling, prologue, tile_trace
-from ..utils import camera
+from ..ops import culling
+from ..utils import camera, spans
 from . import launch, sharding
 
 
@@ -78,7 +78,7 @@ def _dryrun_rank(n_devices: int, device_type: str) -> dict:
         raise RuntimeError(f"dry run chose {renderer.chosen_pipeline} / "
                            f"{renderer.chosen_backend}, not tile-sharded "
                            "/ pallas")
-    _reset_launches()
+    spans.reset_launches()
     img, stats = renderer.render(_example_ivp(cfg.width, cfg.height),
                                  with_stats=True)
     _sync(img.device)
@@ -98,21 +98,15 @@ def dryrun_multichip(n_devices: int, device="cuda",
     kernel on its shard, on the CPU its plain version. Raises if the
     renderer chose another path or the frame is malformed; returns each
     rank's {"mesh", "image", "visits" (its shard's unit visits), "launches"
-    (the trace and prologue kernels' launches of the frame)}."""
+    (the kernels' launches of the frame)}."""
     device_type = torch.device(device).type
     return launch.spawn(_dryrun_rank, n_devices, device_type,
                         args=(n_devices, device_type), timeout_s=timeout_s)
 
 
-def _reset_launches() -> None:
-    tile_trace.reset_launches()
-    prologue.reset_launches()
-
-
 def _launches() -> dict:
-    """The trace and prologue kernels' launches since _reset_launches."""
-    return {k: n for k, n in (*tile_trace.LAUNCHES.items(),
-                              *prologue.LAUNCHES.items()) if n}
+    """The kernels' launches since spans.reset_launches()."""
+    return {k: n for k, n in spans.launches().items() if n}
 
 
 def _sync(device: torch.device) -> None:
@@ -132,9 +126,9 @@ def render_jobs(scenes: dict, jobs: list[dict]) -> list[dict]:
       "reps"      frames to time after the counted one (default 0).
 
     Returns one dict per job: rank, mesh indices, the process group's
-    backend, the chosen pipeline and backend, shard_bytes, the trace and
-    prologue kernels' launches of the counted frame (their counts set to
-    0 just before it), its image and this rank's trace (ShardedRenderer.render's
+    backend, the chosen pipeline and backend, shard_bytes, the kernels'
+    launches of the counted frame (their counts set to 0 just before
+    it), its image and this rank's trace (ShardedRenderer.render's
     stats) as NumPy, and with reps the ms per frame: "ms_events" (CUDA
     events on this rank) and "ms_wall" (host clock, from a barrier to the
     last rank's synchronise)."""
@@ -150,7 +144,7 @@ def render_jobs(scenes: dict, jobs: list[dict]) -> list[dict]:
             pipeline=job.get("pipeline", "auto"),
             backend=job.get("backend", "auto"))
         dev = mesh.device
-        _reset_launches()
+        spans.reset_launches()
         img, stats = renderer.render(job["ivp"], with_stats=True)
         _sync(dev)
         res = {"rank": mesh.rank, "rays_index": mesh.rays_index,

@@ -47,6 +47,7 @@ from ..models import scene as scene_mod
 from ..models.scene import DeviceScene
 from ..ops import _f32, culling, prologue, raygen, shading, tile_trace, tiled
 from ..ops.culling import UNITS_PER_CLUSTER
+from ..utils import spans
 from .renderer import _quantize
 
 BIG = 1e30
@@ -687,7 +688,9 @@ def _overflow_pass(scene, rot, trn, scl, overflow, best_t, best_n,
     """Serial full-frame pass over ONLY the instances whose footprint
     overflowed the merged launch's row pool (min-combining is idempotent
     for rows already traced). `overflow` comes to the host once."""
-    for i in overflow.nonzero()[:, 0].tolist():
+    # nonzero() itself waits for the device: it is the sync's read.
+    for i in spans.sync("instances.overflow", overflow,
+                        lambda m: m.nonzero()[:, 0].tolist()):
         cam = _object_camera(scene, rot[i], trn[i], scl[i], world)
         best_t, best_n, _ = _trace_instance(scene, cam, rot[i], scl[i],
                                             best_t, best_n, world, cfg)
@@ -715,7 +718,8 @@ def _render_instanced(scene: DeviceScene, rot, trn, scl, ivp,
         cam = _object_camera(scene, rot[i], trn[i], scl[i], world)
         tile_sees = cam.cluster_hit.any(dim=1)
         # One host sync per instance: right, and slow.
-        if m_cap < n_tiles and int(tile_sees.sum()) <= m_cap:
+        if m_cap < n_tiles and spans.sync("instances.tile_cap",
+                                          tile_sees.sum()) <= m_cap:
             # Per-tile instance culling: gather only the tiles whose
             # frustum sees this instance (ascending, then unseen tiles as
             # padding: their cluster lists are empty and pass the carry

@@ -41,7 +41,6 @@ always hash-drawn, its default.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 
@@ -52,6 +51,7 @@ from ..config import RenderConfig
 from ..models.scene import DeviceScene
 from ..ops import (_f32, culling, group_trace, grouped, path_shade, raygen,
                    tile_trace, tiled, traversal)
+from ..utils import spans
 
 BIG = 1e30
 GROUP = grouped.GROUP
@@ -195,15 +195,16 @@ def _sort_state(scene: DeviceScene, o, d, alive, rad, idx, engine: str):
     """One stable sort of the secondary state: by group key (live rays by
     octant and origin cell, dead rays at the back) for the group engines,
     live rays first for perray."""
-    if engine == "perray":
-        skey = torch.where(alive, 0, 1).to(torch.int32)
+    with spans.span("rtmm.pathtrace._sort_state"):
+        if engine == "perray":
+            skey = torch.where(alive, 0, 1).to(torch.int32)
+            skey, order = torch.sort(skey, stable=True)
+            return (o[order], d[order], skey == 0, rad[order], idx[order])
+        skey = torch.where(alive, grouped._sort_key(o, d, scene),
+                           grouped.DEAD_KEY)
         skey, order = torch.sort(skey, stable=True)
-        return (o[order], d[order], skey == 0, rad[order], idx[order])
-    skey = torch.where(alive, grouped._sort_key(o, d, scene),
-                       grouped.DEAD_KEY)
-    skey, order = torch.sort(skey, stable=True)
-    return (o[order], d[order], skey < grouped.DEAD_KEY, rad[order],
-            idx[order])
+        return (o[order], d[order], skey < grouped.DEAD_KEY, rad[order],
+                idx[order])
 
 
 def _trace_perray(scene: DeviceScene, o, d, alive, cfg: RenderConfig,
@@ -213,7 +214,7 @@ def _trace_perray(scene: DeviceScene, o, d, alive, cfg: RenderConfig,
     host sync); the dead lanes' hits are masked, so this equals tracing
     every lane."""
     n = o.shape[0]
-    n_live = int(alive.sum())
+    n_live = spans.sync("pathtrace.perray_live", alive.sum())
     bt = torch.full((n,), cfg.t_max, dtype=torch.float32, device=o.device)
     bn3 = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
     hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
@@ -223,19 +224,13 @@ def _trace_perray(scene: DeviceScene, o, d, alive, cfg: RenderConfig,
     return bt, bn3, hit & alive
 
 
-@contextlib.contextmanager
-def _stage(timings, name: str):
-    """CUDA-event span of one stage, kept in timings[name] (a list of
-    (start, end) event pairs) when timings is a dict; nothing otherwise."""
-    if timings is None:
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    timings.setdefault(name, []).append((start, end))
+def _stage(timings, name: str, dev: torch.device):
+    """The span of one stage, "rtmm.pathtrace." + its kind: with device
+    time on a CUDA scene while spans are on, and its CUDA event pair kept
+    in timings[name] (a list of (start, end) pairs) when timings is a
+    dict."""
+    return spans.span("rtmm.pathtrace." + name.split(" ")[0], dev, timings,
+                      name)
 
 
 def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
@@ -251,107 +246,112 @@ def path_trace(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
     b, its window loop included), "shade+spawn" (the primaries' and each
     bounce's shading, draws and next rays: path_shade.primary and
     path_shade.bounce, one launch each)."""
-    height, width = cfg.height, cfg.width
-    engine = _resolve_engine(scene, pt.engine)
-    dev = scene.device
-    with _stage(timings, "primary"):
-        o0, d0 = raygen.generate_rays(inv_view_proj, width, height,
-                                      device=dev)
-        if engine == "perray":
-            t0, bn0, hit0 = _trace_chunked(scene, o0, d0, cfg, pt.ray_chunk)
-        else:
-            t0, hit0, bn0 = _trace_primary(scene, inv_view_proj, cfg,
-                                           engine)
-    n = o0.shape[0]
-    n_bounce = pt.bounces
-    cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
-                  if pt.bounce_t_max else cfg)
-    sc = path_shade.shading_consts(cfg)
-    spp = pt.samples_per_pixel
-    ovf_key = _overflow_stat_key(engine)
-    # The per-ray state is padded to a GROUP multiple (dead pad lanes) and
-    # tiled over the samples: lane g = sample * total + pixel.
-    pad = (-n) % GROUP
-    total = n + pad
-    mtotal = spp * total
-
-    # The primaries' radiance, bounce origins and first spawn (none for
-    # primary-only tracing: no secondary state exists).
-    with _stage(timings, "shade+spawn"):
-        radiance0, o, d, alive = path_shade.primary(
-            pt.seed, total, spp if n_bounce else 0, bn0, d0, o0, t0, hit0,
-            sc)
-    live0 = hit0.sum().to(torch.int32)
-    if n_bounce == 0:
-        return radiance0.reshape(height, width, 3), {
-            "live_rays_per_bounce": live0[None].to(torch.float32),
-            ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
-
-    idx = torch.arange(mtotal, dtype=torch.int32, device=dev)
-    rad = torch.zeros((mtotal, 3), dtype=torch.float32, device=dev)
-
-    caps = _cap_schedule(mtotal, engine, n_bounce)
-    tails = []          # (rad, idx) of the dead tails cut off, in order
-    live_counts, overflows = [], []
-    for bounce in range(1, n_bounce + 1):
-        with _stage(timings, f"sort {bounce}"):
-            o, d, alive, rad, idx = _sort_state(scene, o, d, alive, rad, idx,
-                                                engine)
-        cap = caps[bounce - 1]
-        # The cut is a host decision (the JAX package's lax.cond): one
-        # sync per bounce. Past the cap every lane is dead after the sort,
-        # so its radiance is final and it is set aside until the unsort.
-        if 0 < cap < o.shape[0] and int(alive.sum()) <= cap:
-            tails.append((rad[cap:], idx[cap:]))
-            o, d, alive, rad, idx = (x[:cap] for x in (o, d, alive, rad,
-                                                       idx))
-        hit = None
-        with _stage(timings, f"trace {bounce}"):
+    with spans.span("rtmm.path_trace"):
+        height, width = cfg.height, cfg.width
+        engine = _resolve_engine(scene, pt.engine)
+        dev = scene.device
+        with _stage(timings, "primary", dev):
+            o0, d0 = raygen.generate_rays(inv_view_proj, width, height,
+                                          device=dev)
             if engine == "perray":
-                bt, bn3, hit = _trace_perray(scene, o, d, alive, cfg_bounce,
-                                             pt)
-                ovf = 0
+                t0, bn0, hit0 = _trace_chunked(scene, o0, d0, cfg,
+                                               pt.ray_chunk)
             else:
-                trace = (group_trace.trace_sorted if engine == "pallas"
-                         else grouped.trace_sorted)
-                # bn3 (g, GROUP, 3) is read in place (K2's is a transposed
-                # view); the kernel computes alive & (t < BIG) & (t > 0).
-                bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
-                                     d.reshape(-1, GROUP, 3),
-                                     alive.reshape(-1, GROUP), cfg_bounce)
-                bt = bt.reshape(-1)
-        overflows.append(int(ovf))
-        spawn = bounce < n_bounce
-        with _stage(timings, "shade+spawn"):
-            # Throughput of every lane read at this bounce: albedo ** b,
-            # a constant (the reference's single material).
-            out = path_shade.bounce(pt.seed, bounce, total, bn3, d, o, bt,
-                                    alive, rad, idx, sc, hit=hit,
-                                    spawn=spawn)
-        rad, alive = out[0], out[1]
-        live_counts.append(alive.sum().to(torch.int32))
-        if spawn:
-            o, d = out[2], out[3]
+                t0, hit0, bn0 = _trace_primary(scene, inv_view_proj, cfg,
+                                               engine)
+        n = o0.shape[0]
+        n_bounce = pt.bounces
+        cfg_bounce = (dataclasses.replace(cfg, t_max=pt.bounce_t_max)
+                      if pt.bounce_t_max else cfg)
+        sc = path_shade.shading_consts(cfg)
+        spp = pt.samples_per_pixel
+        ovf_key = _overflow_stat_key(engine)
+        # The per-ray state is padded to a GROUP multiple (dead pad lanes) and
+        # tiled over the samples: lane g = sample * total + pixel.
+        pad = (-n) % GROUP
+        total = n + pad
+        mtotal = spp * total
 
-    # Undo the permutations: idx is a permutation of [0, mtotal).
-    rad = torch.cat([rad] + [t[0] for t in reversed(tails)])
-    idx = torch.cat([idx] + [t[1] for t in reversed(tails)])
-    out = torch.empty_like(rad)
-    out[idx.to(torch.int64)] = rad
-    per_sample = out.reshape(spp, total, 3)[:, :n]
-    radiance = per_sample[0]
-    for s in range(1, spp):
-        radiance = radiance + per_sample[s]
-    image = (radiance0 + _f32.div(radiance, float(spp))).reshape(
-        height, width, 3)
-    live = torch.stack([live0 * spp] + live_counts).to(torch.float32)
-    stats = {
-        "live_rays_per_bounce": _f32.div(live, float(spp)),
-        # Index 0 is bounce 0, the exact primary trace: always 0.
-        ovf_key: torch.tensor([0] + overflows, dtype=torch.int32,
-                              device=dev),
-    }
-    return image, stats
+        # The primaries' radiance, bounce origins and first spawn (none for
+        # primary-only tracing: no secondary state exists).
+        with _stage(timings, "shade+spawn", dev):
+            radiance0, o, d, alive = path_shade.primary(
+                pt.seed, total, spp if n_bounce else 0, bn0, d0, o0, t0, hit0,
+                sc)
+        live0 = hit0.sum().to(torch.int32)
+        if n_bounce == 0:
+            return radiance0.reshape(height, width, 3), {
+                "live_rays_per_bounce": live0[None].to(torch.float32),
+                ovf_key: torch.zeros(1, dtype=torch.int32, device=dev)}
+
+        idx = torch.arange(mtotal, dtype=torch.int32, device=dev)
+        rad = torch.zeros((mtotal, 3), dtype=torch.float32, device=dev)
+
+        caps = _cap_schedule(mtotal, engine, n_bounce)
+        tails = []          # (rad, idx) of the dead tails cut off, in order
+        live_counts, overflows = [], []
+        for bounce in range(1, n_bounce + 1):
+            with _stage(timings, f"sort {bounce}", dev):
+                o, d, alive, rad, idx = _sort_state(scene, o, d, alive, rad,
+                                                    idx, engine)
+            cap = caps[bounce - 1]
+            # The cut is a host decision (the JAX package's lax.cond): one
+            # sync per bounce. Past the cap every lane is dead after the sort,
+            # so its radiance is final and it is set aside until the unsort.
+            if 0 < cap < o.shape[0] and spans.sync("pathtrace.lane_cap",
+                                                   alive.sum()) <= cap:
+                tails.append((rad[cap:], idx[cap:]))
+                o, d, alive, rad, idx = (x[:cap] for x in (o, d, alive, rad,
+                                                           idx))
+            hit = None
+            with _stage(timings, f"trace {bounce}", dev):
+                if engine == "perray":
+                    bt, bn3, hit = _trace_perray(scene, o, d, alive,
+                                                 cfg_bounce, pt)
+                    ovf = 0
+                else:
+                    trace = (group_trace.trace_sorted if engine == "pallas"
+                             else grouped.trace_sorted)
+                    # bn3 (g, GROUP, 3) is read in place (K2's is a transposed
+                    # view); the kernel computes alive & (t < BIG) & (t > 0).
+                    bt, bn3, ovf = trace(scene, o.reshape(-1, GROUP, 3),
+                                         d.reshape(-1, GROUP, 3),
+                                         alive.reshape(-1, GROUP), cfg_bounce)
+                    bt = bt.reshape(-1)
+            # The grouped engine's count is a tensor; the others' an int.
+            overflows.append(spans.sync("pathtrace.overflow", ovf)
+                             if isinstance(ovf, torch.Tensor) else ovf)
+            spawn = bounce < n_bounce
+            with _stage(timings, "shade+spawn", dev):
+                # Throughput of every lane read at this bounce: albedo ** b,
+                # a constant (the reference's single material).
+                out = path_shade.bounce(pt.seed, bounce, total, bn3, d, o, bt,
+                                        alive, rad, idx, sc, hit=hit,
+                                        spawn=spawn)
+            rad, alive = out[0], out[1]
+            live_counts.append(alive.sum().to(torch.int32))
+            if spawn:
+                o, d = out[2], out[3]
+
+        # Undo the permutations: idx is a permutation of [0, mtotal).
+        rad = torch.cat([rad] + [t[0] for t in reversed(tails)])
+        idx = torch.cat([idx] + [t[1] for t in reversed(tails)])
+        out = torch.empty_like(rad)
+        out[idx.to(torch.int64)] = rad
+        per_sample = out.reshape(spp, total, 3)[:, :n]
+        radiance = per_sample[0]
+        for s in range(1, spp):
+            radiance = radiance + per_sample[s]
+        image = (radiance0 + _f32.div(radiance, float(spp))).reshape(
+            height, width, 3)
+        live = torch.stack([live0 * spp] + live_counts).to(torch.float32)
+        stats = {
+            "live_rays_per_bounce": _f32.div(live, float(spp)),
+            # Index 0 is bounce 0, the exact primary trace: always 0.
+            ovf_key: torch.tensor([0] + overflows, dtype=torch.int32,
+                                  device=dev),
+        }
+        return image, stats
 
 
 def _overflow_stat_key(engine: str) -> str:

@@ -20,6 +20,7 @@ import torch
 from ..config import RenderConfig
 from ..models.scene import DeviceScene
 from ..ops import raygen, shading, tile_trace, tiled, traversal
+from ..utils import spans
 
 
 def render_image(scene: DeviceScene, inv_view_proj,
@@ -127,25 +128,30 @@ class FramePipeline:
 
     def submit(self, inv_view_proj):
         """Enqueue a frame; returns the oldest finished frame (as uint8
-        ndarray) once the pipeline is full, else None."""
-        frame = self.renderer.render_u8_device(inv_view_proj)
-        if frame.device.type == "cuda":
-            host = torch.empty(frame.shape, dtype=frame.dtype,
-                               pin_memory=True)
-            host.copy_(frame, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(frame.device))
-            self._queue.append((host, done))
-        else:
-            self._queue.append((frame, None))
-        if len(self._queue) >= self.depth:
-            return self._pop()
-        return None
+        ndarray) once the pipeline is full, else None. Spans: the call
+        "rtmm.submit", its issue (render, quantise, copy, event)
+        "rtmm.submit.issue" and its wait on frame n - depth's fence
+        "rtmm.submit.fence_wait"."""
+        with spans.span("rtmm.submit"):
+            with spans.span("rtmm.submit.issue"):
+                frame = self.renderer.render_u8_device(inv_view_proj)
+                if frame.device.type == "cuda":
+                    host = torch.empty(frame.shape, dtype=frame.dtype,
+                                       pin_memory=True)
+                    host.copy_(frame, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(frame.device))
+                    self._queue.append((host, done))
+                else:
+                    self._queue.append((frame, None))
+            if len(self._queue) >= self.depth:
+                return self._pop()
+            return None
 
     def _pop(self) -> np.ndarray:
         host, done = self._queue.pop(0)
         if done is not None:
-            done.synchronize()
+            spans.sync("submit.fence_wait", done, torch.cuda.Event.synchronize)
         return host.numpy()
 
     def drain(self):

@@ -19,6 +19,7 @@ import torch
 
 from ..ops import raygen, tiled, traversal
 from ..render.renderer import render_image
+from . import spans
 
 
 @dataclasses.dataclass
@@ -119,13 +120,14 @@ def collect_frame_stats(scene, inv_view_proj, cfg,
 def profiler_trace(logdir: str):
     """torch.profiler trace of the block, CPU and (where there is a card)
     CUDA activity, written to logdir/trace.json (chrome://tracing or
-    Perfetto). Yields the profiler; device_busy(logdir) reads the
-    device's busy share from the written trace."""
+    Perfetto), with the program's spans on (utils/spans.py), so the trace
+    carries their ranges. Yields the profiler; device_busy(logdir) reads
+    the device's busy share from the written trace."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, spans.on():
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

@@ -130,6 +130,7 @@ def _flag_stats(tmp_path, monkeypatch, capsys):
                      "--out", str(out)]) == 0
     text = capsys.readouterr().out
     assert "traversal_steps_total" in text and "kernel visits:" in text
+    assert "spans:" in text and "rtmm.tile_trace.render_frame" in text
     hm = image_io.read_png(str(out / "heatmap_0000.png"))
     assert hm.shape == (32, 64, 3) and hm.max() > 0
 
@@ -171,6 +172,7 @@ def test_cli_pathtrace_writes_frame(tmp_path, capsys):
     assert rc == 0
     text = capsys.readouterr().out
     assert "live rays/bounce" in text and "1 bounces, 1 spp" in text
+    assert "spans:" in text and "rtmm.path_trace" in text
     img = image_io.read_png(str(out / "frame_0000.png"))
     assert img.shape == (32, 48, 3)
     assert (np.abs(img.astype(int) - 74).max(-1) > 2).sum() > 50

@@ -144,8 +144,8 @@ def main() -> int:
         _drift(args.drift)
         return 0
     import chip_smoke
-    from rtmm_tpu_torch.ops import (group_trace, path_shade, prologue,
-                                    tile_trace)
+    from rtmm_tpu_torch.ops import path_shade, prologue, tile_trace
+    from rtmm_tpu_torch.utils import spans
 
     t_start = time.perf_counter()
 
@@ -184,9 +184,7 @@ def main() -> int:
             return expect(what, expected)
         except RuntimeError as exc:
             report(what, expectation_failed=str(exc))
-            got = {k: n for d in (tile_trace.LAUNCHES, group_trace.LAUNCHES,
-                                  path_shade.LAUNCHES, prologue.LAUNCHES)
-                   for k, n in d.items()}
+            got = spans.launches()
             return {**dict.fromkeys(expected, 0), **got}
 
     chip_smoke._expect_launches = expect_launches
@@ -220,9 +218,7 @@ def main() -> int:
         torch.cuda.synchronize()
         orbit = _trace(lambda: tile_trace.render_frames(scene, ivps, cfg))
         report("phase 17 orbit", orbit=orbit,
-               launches={k: v for k, v in (*tile_trace.LAUNCHES.items(),
-                                           *prologue.LAUNCHES.items())
-                         if v})
+               launches={k: v for k, v in spans.launches().items() if v})
         canary("phase 17 orbit")
         raise _Done
 
