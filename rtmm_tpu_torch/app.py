@@ -262,8 +262,8 @@ def _dump_bary(path: str) -> int:
 
 def _print_spans(before: dict) -> None:
     """--stats: the frame's spans (utils/spans.py): host self ms per span
-    name, device ms of the stage spans, and the syncs per site and kernel
-    launches since the counters() snapshot `before`."""
+    name, device ms of the stage spans, and the syncs and uploads per
+    site and kernel launches since the counters() snapshot `before`."""
     s = spans.summary(spans.take(), before)
     for kind in ("host_self_ms", "device_ms"):
         s[kind] = {k: round(v, 4) for k, v in sorted(s[kind].items())}

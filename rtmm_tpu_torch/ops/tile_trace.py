@@ -30,6 +30,8 @@ rows, or, in a compressed scene, derived from its grid-vertex record.
   trace_raw_plain        vectorised over 64 leaves x 1,024 rays), operation
                          for operation the kernel's arithmetic.
   LAUNCHES               kernel launches so far, per kernel entry.
+  upload                 camera matrices onto the scene's device without
+                         a stream sync (the frame prologue's one upload).
   render_frame           one frame (render_pallas): fused when every
                          tile's cluster list fits one launch, else windowed.
   render_frames          F frames (render_pallas_frames): each launch
@@ -793,6 +795,40 @@ def cluster_lists(scene: DeviceScene, fi: tiled.FrameInputs, kc: int):
                                     window=False)[:3]
 
 
+def upload(x, device: torch.device) -> torch.Tensor:
+    """Camera matrices x (a numpy array, a list or a tensor, any float
+    dtype) as a float32 tensor on `device`, without waiting for the
+    device's stream.
+
+    A tensor already on a device is cast there (Tensor.to). Host data is
+    rounded to float32 on the host, as torch.as_tensor(x,
+    dtype=torch.float32) rounds it. For a CUDA device it is then copied
+    into a page-locked block of PyTorch's caching host allocator and sent
+    by a non-blocking copy, counted as the upload "tile_trace.camera": the
+    copy records its event on the current stream, so the block is not
+    reused before the copy has run, and x may change as soon as this
+    returns. Where no memory can be pinned, a pageable copy, which waits
+    for the stream, counts as the sync "tile_trace.camera_pageable". On a
+    CPU device: torch.as_tensor."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return x.to(device=device, dtype=torch.float32)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    if device.type != "cuda":
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+    host = torch.as_tensor(x, dtype=torch.float32).contiguous()
+    try:
+        staged = host.pin_memory()
+    except RuntimeError:
+        return spans.sync("tile_trace.camera_pageable", host,
+                          lambda h: h.to(device))
+    if staged.data_ptr() == host.data_ptr():
+        # x was pinned already: stage a copy, not x itself.
+        staged = host.clone().pin_memory()
+    spans.upload("tile_trace.camera")
+    return staged.to(device, non_blocking=True)
+
+
 def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
                   kc: int):
     """The launch inputs of F frames for in-kernel raygen, built in one
@@ -805,8 +841,7 @@ def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
     pack) and cluster_select (the cull and the lists)."""
     with spans.span("rtmm.tile_trace.frames_inputs"):
         pw, ph = tiled.padded_size(cfg.width, cfg.height)
-        ivps = torch.as_tensor(inv_view_projs, dtype=torch.float32,
-                               device=scene.device)
+        ivps = upload(inv_view_projs, scene.device)
         if ivps.dim() != 3 or ivps.shape[1:] != (4, 4):
             raise ValueError(f"inv_view_projs must be (F, 4, 4), not "
                              f"{tuple(ivps.shape)}")
@@ -824,18 +859,16 @@ def frames_inputs(scene: DeviceScene, inv_view_projs, cfg: RenderConfig,
 def frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
                  kc: int):
     """One frame's launch inputs for in-kernel raygen: (ccand, ccount,
-    centry, frus), frames_inputs of a batch of one."""
-    ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
-                          device=scene.device)
-    return frames_inputs(scene, ivp[None], cfg, kc)
+    centry, frus), frames_inputs of a batch of one (one upload)."""
+    return frames_inputs(scene, upload(inv_view_proj, scene.device)[None],
+                         cfg, kc)
 
 
 def ray_frame_inputs(scene: DeviceScene, inv_view_proj, cfg: RenderConfig):
     """One frame's inputs with a ray matrix: (fi, frus without raygen
     scalars, raymat (tiles, 8, TILE) rows [d, a x d, s, 1])."""
     with spans.span("rtmm.tile_trace.ray_frame_inputs"):
-        ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32,
-                              device=scene.device)
+        ivp = upload(inv_view_proj, scene.device)
         fi = tiled.build_frame_inputs(scene, ivp, cfg, need_rays=True,
                                       kernels=True)
         return fi, fi.frus, fi.raymat.transpose(1, 2).contiguous()
@@ -966,9 +999,7 @@ def render_frames(scene: DeviceScene, inv_view_projs,
     render frame by frame. Returns (F, H, W, 3) f32."""
     with spans.span("rtmm.tile_trace.render_frames"):
         kc = clusters_per_window(scene, cfg)
-        if not isinstance(inv_view_projs, torch.Tensor):
-            inv_view_projs = torch.from_numpy(np.asarray(inv_view_projs))
-        ivps = inv_view_projs.to(device=scene.device, dtype=torch.float32)
+        ivps = upload(inv_view_projs, scene.device)
         f_total = ivps.shape[0]
         if scene.num_clusters > kc or not cfg.kernel_raygen:
             return torch.stack([render_frame(scene, ivps[i], cfg)

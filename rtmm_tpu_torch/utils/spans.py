@@ -30,6 +30,8 @@ Counters count always, a dict increment each:
             hot paths make the host wait on a device value. While spans
             are on, a sync is a span too, named "rtmm." + site, so the
             time blocked there is known.
+  uploads   host-to-device copies from pinned memory that wait for
+            nothing, per site (upload()).
 
 The open spans form one stack per process: spans are for one thread.
 """
@@ -53,6 +55,7 @@ _ids = 0
 _frames = 0
 _launches: dict[str, int] = {}
 _syncs: dict[str, int] = {}
+_uploads: dict[str, int] = {}
 
 
 class Record:
@@ -171,6 +174,11 @@ def launch(kernel: str) -> None:
     _launches[kernel] += 1
 
 
+def upload(site: str) -> None:
+    """Count one asynchronous pinned upload at `site`."""
+    _uploads[site] = _uploads.get(site, 0) + 1
+
+
 @contextlib.contextmanager
 def on():
     """Spans on for the block (off again after it, or as they were)."""
@@ -205,9 +213,14 @@ def syncs() -> dict[str, int]:
     return dict(_syncs)
 
 
+def uploads() -> dict[str, int]:
+    """Asynchronous pinned uploads so far, per site."""
+    return dict(_uploads)
+
+
 def counters() -> dict:
-    """A snapshot of both counters, for since()."""
-    return {"launches": launches(), "syncs": syncs()}
+    """A snapshot of every counter, for since()."""
+    return {"launches": launches(), "syncs": syncs(), "uploads": uploads()}
 
 
 def since(before: dict) -> dict:
@@ -232,7 +245,8 @@ def self_ns(records: list[Record]) -> dict[int, int]:
 def summary(records: list[Record], before: dict | None = None) -> dict:
     """Host self milliseconds per span name, device milliseconds per
     stage span name (the spans with events), and, given a counters()
-    snapshot, the syncs per site and launches per kernel since it."""
+    snapshot, the syncs and uploads per site and launches per kernel
+    since it."""
     own = self_ns(records)
     host: dict[str, float] = {}
     device: dict[str, float] = {}
