@@ -900,26 +900,29 @@ def trace_windows(scene: DeviceScene, fi: tiled.FrameInputs, frus, raymat,
     (tiled.trace_windowed_clusters). frus and raymat (tiles, 8, TILE) as
     ray_frame_inputs gives them. Returns (best_t (tiles, TILE), summed
     winner normals (tiles, 3, TILE), visits (tiles,), eligible (tiles,),
-    number of windows)."""
-    meta, tables, opts = scene_tables(scene)
-    n_tiles = frus.shape[0]
-    dev = frus.device
+    number of windows). The span "rtmm.tile_trace.trace_windows" holds
+    the loop, its per-window sync "tiled.cluster_window" included."""
+    with spans.span("rtmm.tile_trace.trace_windows"):
+        meta, tables, opts = scene_tables(scene)
+        n_tiles = frus.shape[0]
+        dev = frus.device
 
-    def trace_window(ccand, ccount, centry, best_t, rest):
-        t, n, vis, elig = trace_windowed(ccand, ccount, centry, frus, raymat,
-                                         (best_t, *rest), meta, tables, cfg,
-                                         **opts)
-        return t, (n, vis, elig)
+        def trace_window(ccand, ccount, centry, best_t, rest):
+            t, n, vis, elig = trace_windowed(ccand, ccount, centry, frus,
+                                             raymat, (best_t, *rest), meta,
+                                             tables, cfg, **opts)
+            return t, (n, vis, elig)
 
-    init_t = torch.full((n_tiles, TILE), BIG, dtype=torch.float32,
-                        device=dev)
-    init_n = (torch.zeros((n_tiles, 3, TILE), dtype=torch.float32,
-                          device=dev),
-              torch.zeros(n_tiles, dtype=torch.int32, device=dev),
-              torch.zeros(n_tiles, dtype=torch.int32, device=dev))
-    best_t, (n, visits, eligible), windows = tiled.trace_windowed_clusters(
-        scene, fi, trace_window, init_t, init_n, kc)
-    return best_t, n, visits, eligible, windows
+        init_t = torch.full((n_tiles, TILE), BIG, dtype=torch.float32,
+                            device=dev)
+        init_n = (torch.zeros((n_tiles, 3, TILE), dtype=torch.float32,
+                              device=dev),
+                  torch.zeros(n_tiles, dtype=torch.int32, device=dev),
+                  torch.zeros(n_tiles, dtype=torch.int32, device=dev))
+        best_t, (n, visits, eligible), windows = \
+            tiled.trace_windowed_clusters(scene, fi, trace_window, init_t,
+                                          init_n, kc)
+        return best_t, n, visits, eligible, windows
 
 
 def render_windowed(scene: DeviceScene, inv_view_proj, cfg: RenderConfig,
